@@ -1,0 +1,175 @@
+"""Dense vector spaces, matmul-factored (counterpart of
+tpu_knn/spaces/dense.py).
+
+Ported so far: the shared dense encode/slice machinery, the p=2 branch of
+the Lp family and ``l2`` (reference: space_lp.h:49-67). Where the
+reference stores precomputed norms inside each Object's byte buffer, the
+whole transformed corpus matrix and its per-row terms are precomputed at
+encode time so every distance block is one matmul (ops/distance.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.dataset import DataKind, DataStore, DenseDeviceData, round_up
+from ..core.params import Params
+from ..core.registry import register_space
+from ..ops import distance as D
+from .base import Space
+
+#: Large-but-finite mask value for padded corpus rows (kept finite so that
+#: post-transforms like sqrt stay NaN-free).
+PAD_TERM = 1e30
+
+
+def clear_upload_cache() -> int:
+    """API parity with tpu_knn: the port keeps no content-keyed upload
+    cache (each index owns its tensors), so there is nothing to release.
+    Returns the number of entries dropped: always 0."""
+    return 0
+
+
+def _pad_ids(ids: np.ndarray, n_pad: int) -> np.ndarray:
+    """Pad the object-id vector with -1 so padding rows are recognizable."""
+    if ids.shape[0] == n_pad:
+        return ids
+    return np.concatenate([ids, np.full(n_pad - ids.shape[0], -1, dtype=ids.dtype)])
+
+
+def _pad_cols(a: np.ndarray, mult: int = 128) -> np.ndarray:
+    d = a.shape[1]
+    dp = round_up(max(d, 1), mult)
+    if dp == d:
+        return a
+    return np.concatenate([a, np.zeros((a.shape[0], dp - d), dtype=a.dtype)], axis=1)
+
+
+class DenseSpace(Space):
+    """Shared encode/slice machinery for dense float spaces.
+
+    Subclasses define ``_transform_x/_transform_q`` (element transforms),
+    ``_term_x/_term_q`` (per-row scalar terms) and ``_block_impl``.
+    """
+
+    data_kind = DataKind.DENSE
+
+    # --- hooks ---
+    def _transform_x(self, v: np.ndarray) -> np.ndarray:
+        return v
+
+    def _transform_q(self, v: np.ndarray) -> np.ndarray:
+        return v
+
+    def _term_x(self, v: torch.Tensor):
+        return None
+
+    def _term_q(self, v: torch.Tensor):
+        return None
+
+    def _block_impl(self, qenc: dict, xc: dict, precision: str) -> torch.Tensor:
+        raise NotImplementedError
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # --- Space interface ---
+    def encode_dataset(self, store: DataStore, row_multiple: int = 8) -> DenseDeviceData:
+        mat = store.dense_matrix().astype(np.float32)
+        n, dim = mat.shape
+        n_pad = round_up(max(n, 1), row_multiple)
+        xt = _pad_cols(self._transform_x(mat).astype(np.float32))
+        vecs = torch.zeros((n_pad, xt.shape[1]), dtype=torch.float32, device=self.device)
+        vecs[:n] = self._upload(xt)
+        # the per-row term from the device matrix where it is a function of
+        # the stored row (term_from_rows), else from the host rows
+        row_term = self.term_from_rows(vecs)
+        if row_term is None:
+            term = self._term_x(self._upload(mat))
+            if term is not None:
+                row_term = torch.zeros(n_pad, dtype=torch.float32, device=self.device)
+                row_term[:n] = term
+        pad = np.zeros(n_pad, np.float32)
+        pad[n:] = PAD_TERM
+        ids = _pad_ids(np.asarray(store.ids, np.int32).reshape(-1), n_pad)
+        data = DenseDeviceData(
+            vecs=vecs,
+            ids=self._upload(ids),
+            count=n,
+            dim=dim,
+            row_term=row_term,
+        )
+        data.extra["pad"] = self._upload(pad)
+        return data
+
+    def encode_queries(self, points) -> dict:
+        q = np.asarray(points, dtype=np.float32)
+        if q.ndim == 1:
+            q = q[None, :]
+        enc = {"q": self._upload(_pad_cols(self._transform_q(q).astype(np.float32)))}
+        term = self._term_q(self._upload(q))
+        if term is not None:
+            enc["q_term"] = term.to(torch.float32)
+        return enc
+
+    def slice_data(self, data: DenseDeviceData, start: int, size: int) -> dict:
+        xc = {"x": data.vecs[start:start + size], "pad": data.extra["pad"][start:start + size]}
+        if data.row_term is not None:
+            xc["x_term"] = data.row_term[start:start + size]
+        for k, v in data.extra.items():
+            # per-row tensors only; 0-d entries are metadata
+            if k != "pad" and getattr(v, "ndim", 0) >= 1:
+                xc[k] = v[start:start + size]
+        return xc
+
+    def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
+        d = self._block_impl(qenc, xc, precision)
+        return d + xc["pad"][None, :]
+
+
+# ---------------- Lp family ----------------
+
+
+class LpSpaceBase(DenseSpace):
+    """Lp norms (reference: space_lp.h:49-67, distcomp_lp.cc). p == 2 goes
+    through the matmul norm identity; p in {1, inf} and generic p (the
+    blocked elementwise path) are not ported yet."""
+
+    def __init__(self, params: Params | None = None, p: float = 2.0, device="cpu"):
+        super().__init__(params, device)
+        self.p = float(p)
+        if self.p != 2.0:
+            raise NotImplementedError(f"Lp space with p={p}: only p=2 (l2) is ported")
+        self.term_recompute = True
+
+    def _term_q(self, v):
+        return D.sq_norms(v)
+
+    def pass1_affine(self):
+        return (-2.0, 1.0, 1.0)
+
+    def pass1_post(self, s, qenc):
+        return torch.sqrt(torch.clamp_min(s, 0.0))
+
+    def term_from_rows(self, rows):
+        return torch.sum(rows * rows, dim=-1)
+
+    def rows_as_queries(self, rows):
+        # _transform_x == _transform_q == identity for p=2: a corpus row
+        # IS its own query encoding (term recomputed from the row)
+        return {"q": rows, "q_term": torch.sum(rows * rows, dim=-1)}
+
+    def _block_impl(self, qenc, xc, precision):
+        d2 = D.factored(
+            qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision
+        )
+        return torch.sqrt(torch.clamp_min(d2, 0.0))
+
+
+@register_space("l2")
+class L2Space(LpSpaceBase):
+    name = "l2"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, p=2.0, device=device)
