@@ -1,7 +1,8 @@
 """The port's group-min pass (tpu_knn_torch/ops/groupmin.py) against the
-JAX Pallas kernel in interpret mode, on the same numpy inputs. On the CPU
-the wrapper runs its plain PyTorch version; the CUDA kernel itself is
-held against that version on the card by chip_smoke.py."""
+JAX Pallas kernel in interpret mode, on the same numpy inputs, at every
+precision tier. On the CPU the wrapper runs its plain PyTorch version;
+the CUDA kernels themselves are held against that version on the card by
+chip_smoke.py."""
 
 import numpy as np
 import pytest
@@ -30,6 +31,7 @@ def _port(q, x, qt, xt, scale=-2.0, **kw):
 
 
 def _jax(q, x, qt, xt, scale=-2.0, tq=16, tc=256):
+    """The Pallas kernel in interpret mode (int8 inputs take its int8 tier)."""
     return np.asarray(jax_groupmin(
         jnp.asarray(q), jnp.asarray(x), jnp.asarray(qt), jnp.asarray(xt),
         scale=scale, tq=tq, tc=tc, interpret=True,
@@ -67,16 +69,76 @@ def test_groupmin_reference_chunking(chunk_bytes):
 
 
 @pytest.mark.parametrize(
-    "qn,n,d,exc",
-    [(16, 500, 128, ValueError), (16, 512, 12, ValueError), (16, 512, 128, NotImplementedError)],
+    "qn,n,d,precision",
+    [(16, 500, 128, "float32"), (16, 512, 12, "float32"), (16, 512, 128, "fp8")],
 )
-def test_groupmin_contract_raises(qn, n, d, exc):
-    """n % 128 != 0 and d % 8 != 0 raise, as on the TPU; so does any
-    pass-1 tier but float32, which is the only one ported."""
+def test_groupmin_contract_raises(qn, n, d, precision):
+    """n % 128 != 0 and d % 8 != 0 raise, as on the TPU; so does a pass-1
+    tier that does not exist."""
     q, x, qt, xt = _inputs(qn, n, d=d)
-    kw = {"precision": "high"} if exc is NotImplementedError else {}
-    with pytest.raises(exc):
-        _port(q, x, qt, xt, **kw)
+    with pytest.raises(ValueError):
+        _port(q, x, qt, xt, precision=precision)
+
+
+def _int8_inputs(qn, n, seed):
+    rng = np.random.default_rng(seed)
+    q8 = rng.integers(-128, 128, size=(qn, 128)).astype(np.int8)
+    x8 = rng.integers(-128, 128, size=(n, 128)).astype(np.int8)
+    qt = rng.integers(0, 1 << 20, size=qn).astype(np.float32)
+    xt = rng.integers(0, 1 << 20, size=n).astype(np.float32)
+    return q8, x8, qt, xt
+
+
+@pytest.mark.parametrize("precision", ["float32", "high"])
+def test_groupmin_int8_tier_matches_pallas_interpret(precision):
+    """int8 inputs run the exact int8 tier whatever the precision says, as
+    the TPU kernel does: bit-equal (atol 0) to Pallas in interpret mode and
+    to the exact int64 product, at the shapes of tests/test_pallas_kernels.py."""
+    q8, x8, qt, xt = _int8_inputs(16, 256, seed=3)
+    got = _port(q8, x8, qt, xt, precision=precision)
+    np.testing.assert_array_equal(got, _jax(q8, x8, qt, xt, tc=256))
+    g = q8.astype(np.int64) @ x8.astype(np.int64).T
+    want = (qt[:, None] + xt[None, :] - 2 * g).reshape(16, 2, 128).min(2)
+    np.testing.assert_array_equal(got, want.astype(np.float32))
+
+
+@pytest.mark.parametrize("precision", ["high", "bfloat16"])
+def test_groupmin_reduced_tiers_match_pallas_interpret(precision):
+    """The plain bf16x3 and bf16 versions (bf16-rounded values, f32
+    matmuls) against the Pallas kernel in interpret mode; atol 1e-3 is the
+    f32 summation-order floor of a depth-128 dot of unit normals."""
+    q, x, qt, xt = _inputs(16, 512, seed=4)
+    got = _port(q, x, qt, xt, precision=precision)
+    want = np.asarray(jax_groupmin(
+        jnp.asarray(q), jnp.asarray(x), jnp.asarray(qt), jnp.asarray(xt),
+        scale=-2.0, tq=16, tc=256, interpret=True, precision=precision,
+    ))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+    # and it is a reduced tier, not the f32 one
+    assert not np.array_equal(got, _port(q, x, qt, xt))
+
+
+def test_groupmin_reduced_tier_split_is_exact_in_f64():
+    """The f64 plain version sees the same bf16 values as the f32 one, so
+    the two differ only by f32 summation (the card's kernel check relies on it)."""
+    q, x, qt, xt = _inputs(16, 256, seed=5)
+    t = [torch.from_numpy(a) for a in (q, x, qt, xt)]
+    for tier in ("high", "bfloat16"):
+        f32 = GM.fused_groupmin_reference(*t, -2.0, precision=tier).double()
+        f64 = GM.fused_groupmin_reference(*(a.double() for a in t), -2.0, precision=tier)
+        np.testing.assert_allclose(f32.numpy(), f64.numpy(), rtol=1e-5, atol=1e-3)
+
+
+def test_groupmin_wrong_dtype_raises():
+    """A tier runs on its own dtype only: int8 q with f32 x, or f64 q, raise."""
+    q8, x8, qt, xt = _int8_inputs(16, 256, seed=6)
+    with pytest.raises(ValueError, match="int8"):
+        GM.fused_groupmin(torch.from_numpy(q8), torch.from_numpy(x8).float(),
+                          torch.from_numpy(qt), torch.from_numpy(xt), -2.0)
+    q, x, qt, xt = _inputs(16, 256)
+    with pytest.raises(ValueError, match="float32"):
+        GM.fused_groupmin(torch.from_numpy(q).double(), torch.from_numpy(x).double(),
+                          torch.from_numpy(qt), torch.from_numpy(xt), -2.0, precision="high")
 
 
 def test_groupmin_build_without_nvcc_raises(monkeypatch, tmp_path):
@@ -87,4 +149,4 @@ def test_groupmin_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         GM.build()
     assert not (tmp_path / "build").exists()
-    assert GM.launches == 0
+    assert GM.launches == dict.fromkeys(GM.TIERS, 0)

@@ -10,8 +10,9 @@ Preserved semantics:
   * validation: l2*/cosine* require dim (lib.zig:351-378);
   * query batches padded to power-of-two buckets, as tpu_knn does.
 
-Ported so far: dense data, the ``l2`` space and the exact scan
-(``seq_search``/``brute_force``). Range search, async queries,
+Ported so far: dense f32 and uint8 data, the ``l2`` and ``l2sqr_sift``
+spaces and the exact scan (``seq_search``/``brute_force``) with every
+pass-1 precision tier. Range search, async queries,
 save/load and ``mesh=`` come in later slices (ROADMAP.md).
 """
 
@@ -138,6 +139,10 @@ class Index:
         # added data invalidates the index; the next query rebuilds it
         self.built = False
 
+    def add_uint8_batch(self, vectors: Any, ids: Sequence[int] | None = None) -> None:
+        self.store.add_uint8_batch(vectors, ids)
+        self.built = False
+
     def _check_dim(self, arr: np.ndarray) -> None:
         want = self.space_params.get("dim")
         if want is not None and arr.ndim >= 1:
@@ -178,7 +183,8 @@ class Index:
     def knn_query(self, point: Any, k: int) -> QueryResult:
         if k <= 0:
             raise InvalidArgumentError("k must be positive")
-        d, i = self.knn_query_batch(np.asarray(point)[None, :], k)
+        batch = [point] if self.data_type is not DataKind.DENSE else np.asarray(point)[None, :]
+        d, i = self.knn_query_batch(batch, k)
         return self._trim(d[0], i[0])
 
     def knn_query_batch(self, points: Any, k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -219,6 +225,9 @@ class Index:
         return [self._trim(dr, ir) for dr, ir in zip(d, i)]
 
     def _prep_query_points(self, points: Any) -> np.ndarray:
+        if self.data_type is DataKind.UINT8:
+            arr = np.asarray(points, dtype=np.uint8)
+            return arr[None, :] if arr.ndim == 1 else arr
         arr = np.asarray(points, dtype=np.float32)
         if arr.ndim == 1:
             arr = arr[None, :]

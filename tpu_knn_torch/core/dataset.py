@@ -215,7 +215,7 @@ class DenseDeviceData:
     matmul-factored distances (squared norms for l2; reference analog:
     space_l2sqr_sift.cc:136-150). All tensors live on one device."""
 
-    vecs: torch.Tensor  # f32[N_pad, D_pad] (space-transformed columns)
+    vecs: torch.Tensor  # f32[N_pad, D_pad] (space-transformed columns), int8 for l2sqr_sift
     ids: torch.Tensor  # i32[N_pad], -1 on padding rows
     count: int
     dim: int  # true (unpadded) dim
@@ -228,20 +228,28 @@ class DenseDeviceData:
         return [t for t in out if isinstance(t, torch.Tensor)]
 
 
-def dense_data_from_numpy(vecs, ids, count: int, dim: int, row_term, pad, device) -> DenseDeviceData:
+def dense_data_from_numpy(vecs, ids, count: int, dim: int, row_term, pad, device,
+                          extra: dict | None = None) -> DenseDeviceData:
     """Build a :class:`DenseDeviceData` on ``device`` from host arrays, e.g.
     the fields of a tpu_knn ``DenseDeviceData`` converted with np.asarray,
-    so a corpus one package encoded can be scanned by the other."""
+    so a corpus one package encoded can be scanned by the other. An int8
+    ``vecs`` (l2sqr_sift) stays int8, any other becomes f32. The 0-d
+    entries of ``extra`` (the certificate metadata: max_sq_norm,
+    max_lo_norm, max_blo_err) are carried across as 0-d f32 tensors."""
 
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)  # a copy
 
+    vecs = np.asarray(vecs)
     data = DenseDeviceData(
-        vecs=t(vecs, torch.float32),
+        vecs=t(vecs, torch.int8 if vecs.dtype == np.int8 else torch.float32),
         ids=t(ids, torch.int32),
         count=int(count),
         dim=int(dim),
         row_term=None if row_term is None else t(row_term, torch.float32),
     )
     data.extra["pad"] = t(pad, torch.float32)
+    for key, v in (extra or {}).items():
+        if np.ndim(v) == 0:
+            data.extra[key] = t(v, torch.float32)
     return data

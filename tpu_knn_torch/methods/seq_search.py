@@ -9,9 +9,11 @@ in one of two routes (:meth:`SeqSearch._plan_knn`):
     streaming top-k, for small corpora;
   * two passes (:func:`_knn_device_twopass`): pass 1 keeps only each
     128-row group's min of the distance block (the group-min kernel,
-    ops/groupmin.py), a top-(k+2) over the [Q, N/128] mins selects groups
-    that provably hold the exact top-k (ops/topk.py GROUP), and pass 2
-    gathers those groups' rows and re-scores them exactly.
+    ops/groupmin.py, at the f32, int8, bf16x3 or bf16 tier), a
+    top-(k+margin) over the [Q, N/128] mins selects groups that provably
+    hold the exact top-k (ops/topk.py GROUP; for the reduced tiers under a
+    certificate with a per-block f32 redo), and pass 2 gathers those
+    groups' rows and re-scores them exactly.
 
 This method is also the gold-standard generator of the evaluation
 harness (gold_standard.h:151-174).
@@ -30,19 +32,31 @@ from ..ops import groupmin as GM
 from ..ops.distance import check_precision
 from ..ops import topk as T
 from ..ops.graph import gather_row_groups, score_gathered
+from ..spaces.dense import ensure_cert_metadata
 from .base import Method
 
-#: Extra groups pass 2 re-scans beyond k: the f32 pass-1 kernel sums in
-#: another order than pass 2, and the margin absorbs that jitter.
-_PASS1_MARGIN = 2
+#: Worst-case certificate coefficients (|err| <= coeff * |q| * |x|), used
+#: only when the residual norms of ensure_cert_metadata are unavailable.
+_PASS1_ERR_COEFF = {"high": 2.0**-14, "bfloat16": 2.0**-5.5}
+#: Extra groups pass 2 re-scans beyond k, per pass-1 tier (pass-2 cost vs
+#: certificate pass rate). The f32 kernel sums in another order than
+#: pass 2; its margin absorbs that jitter.
+_PASS1_MARGIN = {"float32": 2, "high": 2, "bfloat16": 8}
+#: bf16 mma passes the tier's kernel adds into its one accumulator
+_PASS1_PASSES = {"high": 3, "bfloat16": 1}
+#: Queries per certificate block: a block with a failing query re-runs
+#: the f32 kernel (tpu_knn's 256-query lax.map blocks).
+_CERT_QBLK = 256
 #: Queries per pass-2 block: [B, kg*128, D] gathered rows bound memory
 #: (805 MB at B=1024, kg=12, D=128 in f32).
 _PASS2_QBLK = 1024
 
 
 def _ids_of(data, pos: torch.Tensor) -> torch.Tensor:
+    """Object ids of corpus positions, in ``data.ids``' dtype (int32, as
+    tpu_knn returns them); -1 where ``pos`` < 0."""
     n_pad = data.ids.shape[0]
-    return torch.where(pos >= 0, data.ids[pos.clamp(0, n_pad - 1)].long(), -1)
+    return torch.where(pos >= 0, data.ids[pos.clamp(0, n_pad - 1)], -1)
 
 
 def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):
@@ -57,8 +71,94 @@ def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):
     return d, _ids_of(data, pos), pos
 
 
-def _pass1(space, qenc, data) -> torch.Tensor:
-    """Group mins f32[Q, N_pad/128] of the affine surrogate distance."""
+def _acc_slack(tier: str, d: int) -> float:
+    """Bound, in units of |q||x|, on the accumulation error of the reduced
+    tier's kernel (csrc/groupmin_mma.cu) against the exact sum of its bf16
+    products.
+
+    tpu_knn's _pass1_eps takes D*2^-24 here: sequential round-to-nearest
+    f32 accumulation of D terms (Higham 2002 eq. 4.2). Hopper's tensor
+    cores do not accumulate that way. Each mma.sync m16n8k16 adds 16 exact
+    products to the running f32 sum after aligning all 17 addends to the
+    largest one and truncating the bits shifted out, then truncates the
+    normalized result (Fasi, Higham, Mikaitis and Pranesh, "Numerical
+    behavior of NVIDIA tensor cores", PeerJ CS 7:e330, 2021). So each
+    instruction loses at most 18 ulps of its largest addend or result,
+    each ulp at most 2^-23 of that magnitude (truncation: no extra
+    guard bits assumed). Every addend and partial sum is at most the sum
+    of the |products|, which Cauchy-Schwarz bounds by |hi_q||hi_x| +
+    |hi_q||lo_x| + |lo_q||hi_x| <= (1 + 2^-5)|q||x| since |hi| <= (1 +
+    2^-8)|v| and |lo| <= 2^-8|v|. The kernel adds ``passes`` products per
+    k (3 for bf16x3 into ONE accumulator, 1 for bf16) in ceil(D/16)
+    instructions per pass:
+
+        slack = passes * ceil(D/16) * 18 * 2^-23 * (1 + 2^-5)
+
+    i.e. 3*D*(9/8)*2^-23*(1 + 2^-5) for bf16x3 at D % 16 == 0."""
+    return _PASS1_PASSES[tier] * (-(-d // 16)) * 18 * 2.0**-23 * (1 + 2.0**-5)
+
+
+def _pass1_eps(qv, data, scale: float, tier: str):
+    """Rigorous per-query bound f32[Q] on |reduced-precision pass-1 score -
+    f32 score|: tpu_knn's _pass1_eps term for term (data-adaptive via the
+    exactly computed bf16 rounding residuals, Cauchy-Schwarz on the
+    omitted terms), except its accumulation slack D*2^-24*|q||x|, which
+    becomes :func:`_acc_slack` of the port's kernel. The port's eps is
+    therefore tpu_knn's plus |scale|*(_acc_slack - D*2^-24)*|q|*X_N in
+    both branches, and never below it.
+
+    Writing q = hi_q + lo_q with hi_q = bf16(q) (same for x), the 'high'
+    kernel computes hi_q.hi_x + hi_q.bf16(lo_x) + bf16(lo_q).hi_x, which
+    deviates from the true dot by lo_q.lo_x + hi_q.(lo_x - bf16(lo_x)) +
+    (lo_q - bf16(lo_q)).hi_x, bounded by |lo_q|*X_LO + |q|*X_BLE +
+    Q_BLE*X_N with the row maxima X_LO = max|x - bf16(x)|, X_BLE =
+    max|lo_x - bf16(lo_x)| and X_N = max|x| of ensure_cert_metadata. The
+    'bfloat16' tier computes hi_q.hi_x, deviating by hi_q.lo_x + lo_q.hi_x
+    + lo_q.lo_x."""
+    qf = qv.float()
+    q_norm = torch.sqrt(torch.sum(qf * qf, dim=1))
+    x_n_sq = data.extra.get("max_sq_norm")
+    if x_n_sq is None:
+        x_n_sq = torch.max(torch.sum(data.vecs.float() ** 2, dim=1))
+    x_n = torch.sqrt(x_n_sq)
+    d = qf.shape[1]
+    x_lo = data.extra.get("max_lo_norm")
+    if x_lo is None:  # coarse worst-case fallback
+        extra = (_acc_slack(tier, d) - d * 2.0**-24) * q_norm * x_n
+        return _PASS1_ERR_COEFF[tier] * abs(scale) * q_norm * x_n + abs(scale) * extra
+    x_ble = data.extra.get("max_blo_err", x_lo)
+    q_hi = qf.to(torch.bfloat16).float()
+    q_lo = qf - q_hi
+    q_lo_norm = torch.sqrt(torch.sum(q_lo * q_lo, dim=1))
+    if tier == "high":
+        q_ble = q_lo - q_lo.to(torch.bfloat16).float()
+        q_ble_norm = torch.sqrt(torch.sum(q_ble * q_ble, dim=1))
+        err = q_lo_norm * x_lo + q_norm * x_ble + q_ble_norm * x_n
+    else:  # single-pass bf16
+        err = (q_norm + q_lo_norm) * x_lo + q_lo_norm * (x_n + x_lo)
+    acc = _acc_slack(tier, d) * q_norm * x_n
+    return abs(scale) * (1.5 * err + acc)
+
+
+def _certificate_ok(vals, k: int, eps):
+    """Exactness certificate for reduced-precision pass 1, per query
+    (bool[Q]; tpu_knn's returns their conjunction over the batch).
+
+    ``vals``: ascending reduced-precision group mins f32[Q, kg+1] (the kg
+    selected groups' mins plus the first unselected one); ``eps``: f32[Q]
+    bound on |reduced-precision - exact| score.
+
+    An unselected group g has reduced min >= vals[:, kg], hence true min
+    >= vals[:, kg] - eps. The true k-th best distance tau is at most the
+    k-th smallest true group min <= vals[:, k-1] + eps. Group g can contain
+    a true top-k entry only if its true min <= tau, so when vals[:, kg] >
+    vals[:, k-1] + 2*eps, the selected groups provably contain the
+    query's exact top-k."""
+    return vals[:, -1] > vals[:, k - 1] + 2.0 * eps
+
+
+def _kernel_inputs(space, qenc, data):
+    """(q, q_term, x_term, scale) of the group-min kernel for an affine space."""
     aff = space.pass1_affine()
     if aff is None:
         raise NotImplementedError(
@@ -74,12 +174,59 @@ def _pass1(space, qenc, data) -> torch.Tensor:
     xt = data.extra["pad"]
     if data.row_term is not None and sx != 0.0:
         xt = xt + sx * data.row_term
-    return GM.fused_groupmin(q, data.vecs, qt, xt, scale)
+    return q, qt, xt, scale
+
+
+def _kept_groups(k: int, n_groups: int, tier: str = "float32") -> int:
+    """kg: the number of groups pass 2 re-scans for a top-k at ``tier``."""
+    return min(k + _PASS1_MARGIN[tier], n_groups)
+
+
+def _select_groups(mins: torch.Tensor, k: int, tier: str = "float32") -> torch.Tensor:
+    """Groups [Q, kg] of the kg smallest group mins (ascending, ties by
+    lower group), as an exact pass 1 selects them."""
+    return T.smallest_k(mins, _kept_groups(k, mins.shape[1], tier))[1]
+
+
+def _pass1(space, qenc, data, tier: str = "float32") -> torch.Tensor:
+    """Group mins f32[Q, N_pad/128] of the affine surrogate distance at
+    ``tier`` (int8 corpora always run the exact int8 tier)."""
+    q, qt, xt, scale = _kernel_inputs(space, qenc, data)
+    return GM.fused_groupmin(q, data.vecs, qt, xt, scale, precision=tier)
+
+
+def _pass1_certified(space, qenc, data, k: int, tier: str):
+    """Reduced-precision pass 1 under the certificate (tpu_knn
+    seq_search.py:291-334). A top-(kg+1) over the reduced mins gives the kg
+    selected groups and the first unselected one; a query is certified
+    by :func:`_certificate_ok`.
+    Only the 256-query blocks that hold a failing query re-run the f32
+    kernel on their queries and replace their group selection.
+
+    Returns (gsel [Q, kg], certified fraction as a 0-d tensor, number of
+    redone blocks)."""
+    q, qt, xt, scale = _kernel_inputs(space, qenc, data)
+    nq = q.shape[0]
+    kg = _kept_groups(k, data.ids.shape[0] // T.GROUP, tier)
+    mins = GM.fused_groupmin(q, data.vecs, qt, xt, scale, precision=tier)
+    vals, gsel1 = T.smallest_k(mins, kg + 1)
+    ok_q = _certificate_ok(vals, k, _pass1_eps(q, data, scale, tier))
+    gsel = gsel1[:, :kg].contiguous()
+    nb = -(-nq // _CERT_QBLK)
+    ok_b = torch.cat([ok_q, ok_q.new_ones(nb * _CERT_QBLK - nq)]).view(nb, _CERT_QBLK).all(dim=1)
+    # the certificate's one host sync per batch: ceil(Q/256) block flags
+    redo = [b for b, ok in enumerate(ok_b.cpu().tolist()) if not ok]
+    for b in redo:
+        s, e = b * _CERT_QBLK, min((b + 1) * _CERT_QBLK, nq)
+        mins_b = GM.fused_groupmin(q[s:e], data.vecs, qt[s:e], xt, scale, precision="float32")
+        gsel[s:e] = _select_groups(mins_b, k, tier)
+    return gsel, ok_q.float().mean(), len(redo)
 
 
 def _pass2(space, qenc, data, gsel: torch.Tensor, k: int):
     """Gather the selected groups' contiguous rows, re-score exactly,
-    in blocks of _PASS2_QBLK queries. Returns ([Q, k] dists, positions)."""
+    in blocks of _PASS2_QBLK queries. Returns ([Q, k] dists, positions).
+    0-d query entries (l2sqr_sift's ``_dimconst``) go to every block."""
     nq = gsel.shape[0]
     corpus = space.corpus_dict(data)
     dks, poss = [], []
@@ -94,21 +241,38 @@ def _pass2(space, qenc, data, gsel: torch.Tensor, k: int):
     return torch.cat(dks), torch.cat(poss)
 
 
-def _knn_device_twopass(space, qenc, data, k: int, precision: str):
-    """Two-pass exact scan (f32 pass 1, no certificate).
+def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precision: str = "float32"):
+    """Two-pass exact scan.
 
-    Pass 1 runs the fused group-min kernel; one top-(k+2) over the
+    Pass 1 runs the fused group-min kernel; one top-(k+margin) over the
     [Q, N/128] mins selects groups in lax.top_k's order (ascending min,
     ties by lower group), pass 2 re-scores their rows exactly and takes
-    the final top-k. The kernel scans the whole corpus in one launch."""
+    the final top-k. The kernel scans the whole corpus in one launch.
+
+    ``pass1_precision`` "high" or "bfloat16" runs pass 1 at a reduced tier
+    without losing exactness, under the certificate of
+    :func:`_pass1_certified` (f32 corpora only, and only when kg+1 groups
+    exist). Pass 2 always re-scores in f32, so the distances a reduced
+    tier returns are bit-identical to the f32 tier's. int8 corpora run the
+    exact int8 tier whatever the precision.
+
+    Returns (dists, ids, positions, certified fraction, redone blocks), the
+    first four as tpu_knn's."""
     check_precision(precision)  # pass 2's batched_dot is f32 only
-    n_pad = data.ids.shape[0]
-    mins = _pass1(space, qenc, data)
-    kg = min(k + _PASS1_MARGIN, n_pad // T.GROUP)
-    _, gsel = T.smallest_k(mins, kg)  # [Q, kg] group indices
+    n_groups = data.ids.shape[0] // T.GROUP
+    use_cert = (
+        pass1_precision != "float32"
+        and data.vecs.dtype != torch.int8  # int8 pass 1 is already exact
+        and _kept_groups(k, n_groups, pass1_precision) + 1 <= n_groups
+    )
+    ok, redone = 1.0, 0
+    if use_cert:
+        gsel, ok, redone = _pass1_certified(space, qenc, data, k, pass1_precision)
+    else:
+        gsel = _select_groups(_pass1(space, qenc, data), k)  # [Q, kg] group indices
     dk, pos = _pass2(space, qenc, data, gsel, k)
     pos = torch.where(torch.isinf(dk), -1, pos)
-    return dk, _ids_of(data, pos), pos
+    return dk, _ids_of(data, pos), pos, ok, redone
 
 
 @register_method("brute_force")  # the reference's PRIMARY registry name
@@ -131,14 +295,18 @@ class SeqSearch(Method):
         self.thread_qty = pm.get("threadQty", 0, int)
         self.chunk = pm.get("chunkSize", 0, int)
         self.precision = pm.get("precision", "float32", str)
-        # pass-1 precision tiers of tpu_knn; only float32 is ported, the
-        # others raise at query time
+        # pass-1 precision tier of the two-pass scan, certified exact at
+        # every tier (see _knn_device_twopass)
         self.pass1_precision = pm.get("pass1Precision", "float32", str)
         if self.pass1_precision not in ("float32", "high", "bfloat16"):
             raise ValueError(f"bad pass1Precision {self.pass1_precision!r}")
         pm.check_unused()
         #: route of the last knn call: "twopass" or "single" (a diagnostic)
         self.last_route = None
+        #: certified fraction of the last knn call's queries (1.0 when no
+        #: certificate ran) and the 256-query blocks it re-ran in f32
+        self.last_certified = 1.0
+        self.last_redone_blocks = 0
 
     def create_index(self, store: DataStore, params: Params | None = None) -> None:
         self.store = store
@@ -166,24 +334,27 @@ class SeqSearch(Method):
             and n_pad % 128 == 0
             and n_pad >= 8 * (kk + 2) * 128
         )
+        if use_twopass and self.pass1_precision != "float32":
+            # lazy certificate metadata (the f32 default never reads it)
+            ensure_cert_metadata(self.data)
         return kk, use_twopass
 
     def knn(self, points, k: int):
         if self.data is None:
             raise IndexNotBuiltError("seq_search: index not built")
-        if self.pass1_precision != "float32":
-            raise NotImplementedError(
-                f"pass1Precision={self.pass1_precision!r}: the reduced pass-1 tiers and their "
-                "certificate are not ported yet (ROADMAP.md, TPU kernels to port)"
-            )
         kk, use_twopass = self._plan_knn(k)
         qenc = self.space.encode_queries(points)
+        ok, redone = 1.0, 0
         if use_twopass:
-            d, ids, _ = _knn_device_twopass(self.space, qenc, self.data, kk, self.precision)
+            d, ids, _, ok, redone = _knn_device_twopass(
+                self.space, qenc, self.data, kk, self.precision, self.pass1_precision
+            )
         else:
             d, ids, _ = _knn_device(self.space, qenc, self.data, kk, self._chunk, self.precision)
         self.last_route = "twopass" if use_twopass else "single"
-        return self._knn_finish(d, ids, k, kk)
+        out = self._knn_finish(d, ids, k, kk)
+        self.last_certified, self.last_redone_blocks = float(ok), redone
+        return out
 
     def _knn_finish(self, d, ids, k: int, kk: int):
         d, ids = d.cpu().numpy(), ids.cpu().numpy()

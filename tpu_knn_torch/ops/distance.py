@@ -5,8 +5,9 @@ Almost every NMSLIB distance factors through a matmul:
     dist[i, j] = post( scale * <A(q_i), B(x_j)>  +  a(q_i) + b(x_j) + const )
 
 with per-space element transforms A/B and per-row terms a/b precomputed
-once at encode time (l2sqr: |q|^2 + |x|^2 - 2 q.x). Only the float32 tier
-is ported: every product here is a full IEEE f32 matmul. On CUDA that
+once at encode time (l2sqr: |q|^2 + |x|^2 - 2 q.x). Every product here is
+a full IEEE f32 matmul; int8 operands (l2sqr_sift) are cast to f32 first,
+which is exact (see :func:`int8_dot`). On CUDA that
 needs ``torch.backends.cuda.matmul.allow_tf32`` False and the float32
 matmul precision "highest" (PyTorch's defaults); the functions refuse to
 run otherwise rather than return TF32 distances, which keep about three
@@ -70,9 +71,22 @@ def factored(
     return post(g) if post is not None else g
 
 
-def batched_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
-    """<q_b, rows_bk> as f32[B, K], full IEEE f32."""
+def int8_dot(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """<q_i, x_j> of int8 rows as f32[Q, C], exact. Torch has no int8
+    matmul on CUDA (and on the CPU it returns int8, wrapped), so the
+    operands are cast to f32: every product is an integer of magnitude at
+    most 2^14 and every partial sum of D <= 1024 of them below 2^24, exact
+    in IEEE f32 in any order (TF32 off)."""
     require_ieee_f32(q)
+    return q.float() @ x.float().T
+
+
+def batched_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """<q_b, rows_bk> as f32[B, K], full IEEE f32. int8 inputs take the
+    exact path of :func:`int8_dot` (tpu_knn's i32 accumulation)."""
+    require_ieee_f32(q)
+    if q.dtype == torch.int8:
+        q, rows = q.float(), rows.float()
     return torch.bmm(rows, q[:, :, None])[:, :, 0]
 
 

@@ -32,7 +32,8 @@ def gather_row_groups(corpus: dict, gsel: torch.Tensor, group: int = 128):
     rows = expand(corpus["vecs"])
     cols = gsel[:, :, None] * group + torch.arange(group, device=gsel.device)[None, None, :]
     cols = cols.reshape(b, kg * group)
-    pad = torch.where(cols >= corpus["count"], INF, 0.0).to(rows.dtype)
+    # f32 whatever the rows' dtype: an int8 row block (l2sqr_sift) cannot hold +inf
+    pad = torch.where(cols >= corpus["count"], INF, 0.0).to(torch.float32)
     extra_sl = {}
     if corpus.get("term") is not None:
         extra_sl["x_term"] = expand(corpus["term"])
@@ -52,8 +53,9 @@ def inject_term(space, rows, extra_sl: dict) -> dict:
 
 def score_gathered(space, qenc: dict, rows, pad, extra_sl: dict) -> torch.Tensor:
     """Distances of query b to its pre-gathered candidate rows [B,K,D]:
-    one batched f32 matmul + the exact post-transform, for spaces with an
-    affine factored form (space.pass1_affine)."""
+    one batched f32 matmul (exact for int8 rows, ops/distance.batched_dot)
+    + the exact post-transform, for spaces with an affine factored form
+    (space.pass1_affine)."""
     extra_sl = inject_term(space, rows, extra_sl)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
     if aff is None or rows.ndim != 3:

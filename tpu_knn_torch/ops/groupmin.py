@@ -1,15 +1,31 @@
 """Pass 1 of the exact two-pass kNN scan: fused distance + 128-row group min.
 
-Counterpart of ``tpu_knn/ops/pallas_scan.py`` (``fused_groupmin``). On a
-CUDA tensor the wrapper launches the hand-written kernel in
-``csrc/groupmin.cu`` (FP32 FFMA, no tensor cores); on a CPU tensor it runs
-the plain PyTorch version, :func:`fused_groupmin_reference`, which is also
-what the kernel is held against on the card.
+Counterpart of ``tpu_knn/ops/pallas_scan.py`` (``fused_groupmin``) and of
+its four precision tiers. On a CUDA tensor the wrapper launches the
+tier's hand-written kernel; on a CPU tensor it runs the plain PyTorch
+version, :func:`fused_groupmin_reference`, which is also what each kernel
+is held against on the card:
 
-The kernel is compiled with ``nvcc`` into a shared library with a plain C
+  ========== ============================ ==================================
+  tier       kernel                       dot of the plain version
+  ========== ============================ ==================================
+  float32    ``csrc/groupmin.cu`` (FFMA)  IEEE f32 matmul
+  int8       ``csrc/groupmin_mma.cu``     f32 matmul of the int8 values cast
+             (IMMA, exact)                to f32: exact, so bit-equal
+  high       ``csrc/groupmin_mma.cu``     bf16x3: hi.hi + (hi.lo + lo.hi),
+             (bf16 mma.sync, 3 passes)    each an f32 matmul of bf16-rounded
+                                          values cast back to f32
+  bfloat16   ``csrc/groupmin_mma.cu``     hi.hi likewise
+  ========== ============================ ==================================
+
+The tier follows the input, as in the TPU kernel: int8 ``q``/``x`` run the
+int8 tier whatever ``precision`` says; f32 inputs run ``precision``.
+
+Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface on first use, keyed by a hash of its source and flags, under
-``tpu_knn_torch/_build/``, and loaded with ``ctypes``. Nothing is built or
-loaded at import time.
+``tpu_knn_torch/_build/``, and loaded with ``ctypes``. :func:`build_all`
+runs the nvcc processes side by side. Nothing is built or loaded at
+import time.
 """
 
 from __future__ import annotations
@@ -24,21 +40,38 @@ from pathlib import Path
 import torch
 
 GROUP = 128
+TIERS = ("float32", "int8", "high", "bfloat16")
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "groupmin.cu"
+#: library name -> CUDA source
+SOURCES = {
+    "groupmin": _PKG / "csrc" / "groupmin.cu",
+    "groupmin_mma": _PKG / "csrc" / "groupmin_mma.cu",
+}
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
+#: tier -> (library, C entry point, D multiple the kernel needs)
+_ENTRY = {
+    "float32": ("groupmin", "tk_groupmin_f32", 8),
+    "int8": ("groupmin_mma", "tk_groupmin_i8", 16),
+    "high": ("groupmin_mma", "tk_groupmin_bf16x3", 8),
+    "bfloat16": ("groupmin_mma", "tk_groupmin_bf16", 8),
+}
 
-#: kernel launches made by :func:`fused_groupmin` (CUDA tensors only)
-launches = 0
+#: kernel launches made by :func:`fused_groupmin`, per tier (CUDA tensors only)
+launches = dict.fromkeys(TIERS, 0)
 
-_lib = None
-#: nvcc's output of the build that produced the loaded library ("" if cached)
-build_log = ""
+_libs: dict = {}
+#: nvcc's output of the build that produced each loaded library ("" if cached)
+build_log: dict = {}
+
+
+def reset_launches() -> None:
+    for tier in launches:
+        launches[tier] = 0
 
 
 def _nvcc() -> str:
@@ -52,61 +85,93 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> Path:
-    """Compile ``csrc/groupmin.cu`` for sm_90a unless a library built from
-    the same source and flags exists; return its path. Raises with nvcc's
-    output when the build fails."""
-    global build_log
-    src = SOURCE.read_bytes()
+def _lib_path(name: str) -> Path:
+    src = SOURCES[name].read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"groupmin-{key}.so"
-    if lib.exists():
-        return lib
+    return BUILD_DIR / f"{name}-{key}.so"
+
+
+def build_all(names=tuple(SOURCES)) -> dict:
+    """Compile each named source for sm_90a unless a library built from the
+    same source and flags exists, one nvcc process per source, all started
+    together. Returns {name: library path}; raises with nvcc's output when
+    a build fails."""
+    libs = {name: _lib_path(name) for name in names}
+    todo = [name for name in names if not libs[name].exists()]
+    if not todo:
+        return libs
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".groupmin-{key}.{os.getpid()}.so"
-    r = subprocess.run(
-        [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-        capture_output=True, text=True,
-    )
-    if r.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {r.returncode}) on {SOURCE}:\n{r.stdout}{r.stderr}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never loads a partial file
-    build_log = r.stdout + r.stderr
+    procs = {}
+    for name in todo:
+        tmp = BUILD_DIR / f".{libs[name].name}.{os.getpid()}"
+        procs[name] = (tmp, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"nvcc failed (exit {proc.returncode}) on {SOURCES[name]}:\n{log}")
+        else:
+            os.replace(tmp, libs[name])  # atomic: a concurrent build never loads a partial file
+            build_log[name] = log
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
+def build(name: str = "groupmin") -> Path:
+    """Compile one source (see :func:`build_all`); return its library's path."""
+    return build_all((name,))[name]
+
+
+def _load(name: str):
+    lib = _libs.get(name)
+    if lib is None:
+        lib = ctypes.CDLL(str(build(name)))
+        p = ctypes.c_void_p
+        for tier, (lname, entry, _) in _ENTRY.items():
+            if lname == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = [
+                    p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_float, p,
+                ]
+                fn.restype = ctypes.c_int
+        lib.tk_error_string.argtypes = [ctypes.c_int]
+        lib.tk_error_string.restype = ctypes.c_char_p
+        _libs[name] = lib
     return lib
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p = ctypes.c_void_p
-        lib.tk_groupmin_f32.argtypes = [
-            p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            ctypes.c_float, p,
-        ]
-        lib.tk_groupmin_f32.restype = ctypes.c_int
-        lib.tk_error_string.argtypes = [ctypes.c_int]
-        lib.tk_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+def tier_of(q: torch.Tensor, precision: str) -> str:
+    """The tier a call runs: int8 inputs run the int8 tier whatever
+    ``precision`` says (as the TPU kernel does); f32 inputs run ``precision``."""
+    if precision not in ("float32", "high", "bfloat16"):
+        raise ValueError(f"fused_groupmin: unknown precision {precision!r}")
+    return "int8" if q.dtype == torch.int8 else precision
 
 
-def _check_contract(q, x, q_term, x_term, precision: str) -> None:
-    if precision != "float32":
-        raise NotImplementedError(
-            f"fused_groupmin precision {precision!r}: only the float32 tier is "
-            "ported (ROADMAP.md, TPU kernels to port)"
-        )
+def _check_contract(q, x, q_term, x_term, tier: str) -> None:
     if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1]:
         raise ValueError(
             f"fused_groupmin needs q [Q, D] and x [N, D]; got {tuple(q.shape)}, {tuple(x.shape)}"
         )
+    want = torch.int8 if tier == "int8" else torch.float32
+    if q.dtype != want or x.dtype != want:
+        raise ValueError(
+            f"fused_groupmin tier {tier!r} needs q and x in {want}; got {q.dtype}, {x.dtype}"
+        )
     qn, d = q.shape
     n = x.shape[0]
-    if n % GROUP or d % 8:
-        raise ValueError(f"fused_groupmin needs n%{GROUP}==0 and d%8==0; got n={n} d={d}")
+    dmul = _ENTRY[tier][2]
+    if n % GROUP or d % dmul:
+        raise ValueError(
+            f"fused_groupmin tier {tier!r} needs n%{GROUP}==0 and d%{dmul}==0; got n={n} d={d}"
+        )
     if q_term.shape != (qn,) or x_term.shape != (n,):
         raise ValueError(
             f"fused_groupmin needs q_term [{qn}] and x_term [{n}]; "
@@ -114,17 +179,42 @@ def _check_contract(q, x, q_term, x_term, precision: str) -> None:
         )
 
 
-def fused_groupmin_reference(q, x, q_term, x_term, scale: float, chunk_bytes: int = 1 << 28):
-    """Plain PyTorch group mins [Q, N/128] of ``scale*<q,x> + x_term + q_term``
-    in the inputs' dtype: one matmul per corpus chunk, then a reshape-min.
-    Chunks keep the [Q, chunk] block under ``chunk_bytes``."""
+def _bf16_split(v: torch.Tensor):
+    """hi = bf16(v) and lo = bf16(v - hi), both as f32 (round to nearest even)."""
+    hi = v.to(torch.bfloat16).to(torch.float32)
+    lo = (v - hi).to(torch.bfloat16).to(torch.float32)
+    return hi, lo
+
+
+def _tier_dot(q, x, tier: str) -> torch.Tensor:
+    """<q, x> [Q, C] of one tier in the working type of ``q`` (f32 or f64):
+    IEEE matmuls only, never a bf16 matmul (whose output is rounded to bf16)."""
+    if tier in ("float32", "int8"):
+        return q @ x.T
+    qh, ql = _bf16_split(q.float())
+    xh, xl = _bf16_split(x.float())
+    qh, ql, xh, xl = (t.to(q.dtype) for t in (qh, ql, xh, xl))
+    if tier == "bfloat16":
+        return qh @ xh.T
+    return qh @ xh.T + (qh @ xl.T + ql @ xh.T)
+
+
+def fused_groupmin_reference(q, x, q_term, x_term, scale: float, precision: str = "float32",
+                             chunk_bytes: int = 1 << 28):
+    """Plain PyTorch group mins [Q, N/128] of ``scale*<q,x> + x_term + q_term``:
+    one :func:`_tier_dot` per corpus chunk, then a reshape-min, in
+    ``q_term``'s dtype (int8 inputs are cast to it, exactly). Chunks keep
+    the [Q, chunk] block under ``chunk_bytes``."""
+    tier = tier_of(q, precision)
+    dt = q_term.dtype
+    q = q.to(dt)
     qn, n = q.shape[0], x.shape[0]
     per_row = max(qn, 1) * q.element_size()
     step = max(GROUP, (chunk_bytes // per_row) // GROUP * GROUP)
     outs = []
     for s in range(0, n, step):
         e = min(s + step, n)
-        dd = scale * (q @ x[s:e].T) + x_term[None, s:e] + q_term[:, None]
+        dd = scale * _tier_dot(q, x[s:e].to(dt), tier) + x_term[None, s:e] + q_term[:, None]
         outs.append(dd.view(qn, (e - s) // GROUP, GROUP).amin(dim=2))
     if not outs:
         return q.new_empty((qn, 0))
@@ -132,37 +222,41 @@ def fused_groupmin_reference(q, x, q_term, x_term, scale: float, chunk_bytes: in
 
 
 def fused_groupmin(q, x, q_term, x_term, scale: float, precision: str = "float32"):
-    """Group mins f32[Q, N/128] of the factored distance block.
+    """Group mins f32[Q, N/128] of the factored distance block at the tier
+    :func:`tier_of` picks.
 
     A CPU tensor runs :func:`fused_groupmin_reference`. A CUDA tensor
-    launches the kernel or raises; it never falls back."""
-    _check_contract(q, x, q_term, x_term, precision)
+    launches the tier's kernel or raises; it never falls back."""
+    tier = tier_of(q, precision)
+    _check_contract(q, x, q_term, x_term, tier)
     if q.device.type == "cpu":
-        return fused_groupmin_reference(q, x, q_term, x_term, scale)
+        return fused_groupmin_reference(q, x, q_term, x_term, scale, precision)
     if q.device.type != "cuda":
         raise ValueError(f"fused_groupmin: unsupported device {q.device}")
     for name, t in (("q", q), ("x", x), ("q_term", q_term), ("x_term", x_term)):
-        if t.device != q.device or t.dtype != torch.float32 or not t.is_contiguous():
+        want = q.dtype if name in ("q", "x") else torch.float32
+        if t.device != q.device or t.dtype != want or not t.is_contiguous():
             raise ValueError(
-                f"fused_groupmin: {name} must be a contiguous float32 tensor on {q.device}; "
+                f"fused_groupmin: {name} must be a contiguous {want} tensor on {q.device}; "
                 f"got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
             )
-        if name in ("q", "x") and t.data_ptr() % 16:  # the kernel loads float4s
+        if name in ("q", "x") and t.data_ptr() % 16:  # the kernels load 16-byte vectors
             raise ValueError(f"fused_groupmin: {name} is not 16-byte aligned")
     qn, d = q.shape
     n = x.shape[0]
     out = torch.empty((qn, n // GROUP), dtype=torch.float32, device=q.device)
     if qn == 0 or n == 0:
         return out
-    lib = _load()
+    lname, entry, _ = _ENTRY[tier]
+    lib = _load(lname)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tk_groupmin_f32(
+        err = getattr(lib, entry)(
             q.data_ptr(), x.data_ptr(), q_term.data_ptr(), x_term.data_ptr(), out.data_ptr(),
             qn, n, d, float(scale), stream,
         )
     if err != 0:
-        raise RuntimeError(f"groupmin kernel launch failed: {lib.tk_error_string(err).decode()} ({err})")
-    global launches
-    launches += 1
+        msg = lib.tk_error_string(err).decode()
+        raise RuntimeError(f"groupmin {tier} kernel launch failed: {msg} ({err})")
+    launches[tier] += 1
     return out
