@@ -38,6 +38,39 @@ printed as it ends, each fatal on failure:
     kernel, while under "high" the second block keeps its certified
     reduced selection; ids still match the float64 oracle except on ties.
 
+Added phases (the first two run right after phase 6, on the indexes of
+phases 4 and 6, before phase 7 rebuilds phase 4's index):
+
+ 9. range: range_query_batch of the 2048 queries on phase 4's 1M l2
+    index, at the median over queries of the k=10 result's 10th distance,
+    against a chunked float64 oracle (counts and id sets equal except for
+    points whose f64 distance lies within the f32 error bound of the
+    radius); then on phase 6's l2sqr_sift index at the integer radius of
+    its 10th distance, against the exact integer oracle, and range_query
+    of one point against its batch row; the largest count, the cap, a
+    median of 5, the peak memory and the device ms of the two passes;
+10. persist: phase 4's index saved with save_data True and False, loaded
+    back with Index.load(path, load_data, device="cuda") in both load
+    modes; knn_query_batch and knn_query_batch_async results
+    bit-identical to those before the save; save and load seconds and
+    artifact sizes;
+11. angular (full width): the glove-100-angular shape,
+    eval.datasets.clustered(1_185_562, 100, seed=1), the first 1,183,514
+    rows the corpus and the last 2048 the queries, through
+    Index("angulardist", Params(dim=100), method="seq_search",
+    device="cuda") at k=10 and k=100 on the two-pass route, against a
+    float64 oracle on the cosine similarity of the normalized rows; the f32
+    and bf16x3 kernels at these shapes (scale -1, no row terms) against
+    their plain versions; pass1Precision "high" bit-identical to f32;
+    cosinesimil and negdotprod at k=10 on the same data;
+12. gold standard and metrics: GoldStandard over the angular corpus equal
+    to the index's results, its cache round trip exact, and
+    eval.metrics of the "high" results against it (recall 1, number
+    closer 0);
+13. precision: phase 5's 3000-row single-pass index with precision
+    "high" (ids equal to the f64 oracle except on ties of the tier's
+    error bound) and "bfloat16" (recall@10 against the f32 gold).
+
 The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card or any phase fails.
@@ -196,13 +229,15 @@ def _same_results(label, d, i, d_ref, i_ref):
           f"{int((i == i_ref).sum())}/{i.size} slots, the rest among exactly equal distances", flush=True)
 
 
-def _check_against_oracle(label, ids, dists, q, x, k):
+def _check_against_oracle(label, ids, dists, q, x, k, dot_rel: float = 0.0):
     """Ids must equal the oracle's except on ties. The returned f32
     distances must be within the f32 norm-identity bound
     B = (D+3)*u*(|q|+|x|)^2 of the exact squared distance, so an f32 scan
     cannot order two ids whose exact squared distances differ by less than
     2B: a tie is an exact distance within 1e-5 relative of the oracle's at
-    that rank, or a squared distance within 2B of it."""
+    that rank, or a squared distance within 2B of it. ``dot_rel`` widens B
+    by 2*dot_rel*|q||x| for a product computed at a reduced tier whose
+    error is at most dot_rel*|q||x|."""
     import torch
 
     dev = q.device
@@ -213,7 +248,8 @@ def _check_against_oracle(label, ids, dists, q, x, k):
     q64 = q.double()
     xr = x[ids_t].double()  # [Q, k, D] rows of the returned ids
     exact = ((xr - q64[:, None, :]) ** 2).sum(-1)  # f64 squared distances
-    bound = (q.shape[1] + 3) * U * (q64.norm(dim=1)[:, None] + xr.norm(dim=-1)) ** 2
+    qn, xn = q64.norm(dim=1)[:, None], xr.norm(dim=-1)
+    bound = (q.shape[1] + 3) * U * (qn + xn) ** 2 + 2.0 * dot_rel * qn * xn
     rel = (exact.sqrt() - od).abs() / od
     f32_tie = (exact - od * od).abs() <= 2.0 * bound
     bad = diff & (rel > 1e-5) & ~f32_tie
@@ -235,6 +271,424 @@ def _check_against_oracle(label, ids, dists, q, x, k):
         f"max d^2 error/bound {float((d2_err / bound).max()):.3g}",
         flush=True,
     )
+
+
+def _dot_topk(q, x, k: int, chunk: int = 65536):
+    """Float64 top-k of the largest <q, x> by a plain chunked product:
+    (dots [Q, k] descending, positions)."""
+    import torch
+
+    q64 = q.double()
+    best_v = torch.empty((q.shape[0], 0), dtype=torch.float64, device=q.device)
+    best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
+    for s in range(0, x.shape[0], chunk):
+        g = q64 @ x[s:s + chunk].double().T
+        v, i = torch.topk(g, min(k, g.shape[1]), dim=1)
+        best_v, sel = torch.topk(torch.cat([best_v, v], 1), min(k, best_v.shape[1] + v.shape[1]), dim=1)
+        best_i = torch.gather(torch.cat([best_i, i + s], 1), 1, sel)
+    return best_v, best_i
+
+
+def _check_dot_oracle(label, ids, q, x, k: int, dists=None, dot_of=None):
+    """Ids of a dot-product space (rows as the index stores them: normalized
+    for cosinesimil/angulardist, raw for negdotprod) against a float64
+    oracle of <q, x>. An f32 product of depth D is within
+    B = (D+2)*u*|q||x| of the exact one, so ids may differ from the
+    oracle's only where the two f64 dots lie within 2B. With ``dot_of``
+    (returned f64 distances -> the dot they stand for), each must lie
+    within B + 16u (the post-transform's rounding) of its id's f64 dot."""
+    import torch
+
+    dev = q.device
+    ov, oi = _dot_topk(q, x, k)
+    ids_t = torch.as_tensor(ids, device=dev).long()
+    _require(ids_t.shape == oi.shape and bool((ids_t >= 0).all()), lambda: f"{label}: missing results")
+    q64 = q.double()
+    xr = x[ids_t].double()
+    dot = (xr * q64[:, None, :]).sum(-1)  # f64 <q, x> of the returned ids
+    bound = (q.shape[1] + 2) * U * q64.norm(dim=1)[:, None] * xr.norm(dim=-1)
+    diff = ids_t != oi
+    bad = diff & ((dot - ov).abs() > 2.0 * bound)
+    worst = float(((dot - ov).abs() / (2.0 * bound))[diff].max()) if bool(diff.any()) else 0.0
+    _require(not bool(bad.any()), lambda: (
+        f"{label}: {int(bad.sum())} ids differ from the f64 oracle beyond ties; first query "
+        f"{int(bad.any(1).nonzero()[0])}"))
+    msg = ""
+    if dot_of is not None:
+        err = (torch.as_tensor(dot_of(np.asarray(dists, np.float64)), device=dev) - dot).abs()
+        ratio = float((err / (bound + 16 * U)).max())
+        _require(ratio <= 1.0, lambda: f"{label}: distance beyond the f32 bound, worst ratio {ratio:.3g}")
+        msg = f"; max distance error/bound {ratio:.3g}"
+    print(f"[oracle] {label}: {q.shape[0]} queries x k={k}: ids equal to the f64 oracle at "
+          f"{int((~diff).sum())}/{diff.numel()} slots, the other {int(diff.sum())} within the f32 "
+          f"bound of the oracle's dot (worst gap/2B {worst:.3g}){msg}", flush=True)
+
+
+def _range_check_l2(label, res, q, x, radius: float, chunk: int = 32768):
+    """Range results of the l2 space against a float64 oracle. The f32
+    distance of a pair is within the norm-identity bound
+    B = (D+3)*u*(|q|+|x|)^2 of the exact squared distance, and its sqrt
+    and the comparison add at most 4*u*r^2; so a point is certainly in
+    when d64^2 < r^2 - band, certainly out when d64^2 > r^2 + band, and
+    undecided in between. Every returned id must not be certainly out, and
+    each query must return every certainly-in point (returned ids are
+    distinct, so the number of returned certainly-in ids must equal the
+    oracle's count of them). Returns (certainly-in counts, undecided
+    counts) per query."""
+    import torch
+
+    dev = q.device
+    q64 = q.double()
+    qn2 = (q64 * q64).sum(1, keepdim=True)
+    qn = qn2.sqrt()
+    r2 = float(radius) ** 2
+    sure_in = torch.zeros(q.shape[0], dtype=torch.int64, device=dev)
+    undecided = torch.zeros_like(sure_in)
+    for s in range(0, x.shape[0], chunk):
+        xc = x[s:s + chunk].double()
+        xn2 = (xc * xc).sum(1)[None, :]
+        d2 = qn2 + xn2 - 2.0 * (q64 @ xc.T)
+        band = (q.shape[1] + 3) * U * (qn + xn2.sqrt()) ** 2 + 4 * U * r2
+        sure_in += (d2 < r2 - band).sum(1)
+        undecided += ((d2 - r2).abs() <= band).sum(1)
+    qi = torch.as_tensor(np.repeat(np.arange(len(res)), [len(r.ids) for r in res]), device=dev)
+    ids = torch.as_tensor(np.concatenate([r.ids for r in res]).astype(np.int64), device=dev)
+    dists = torch.as_tensor(np.concatenate([r.dists for r in res]), device=dev).double()
+    xr = x[ids].double()
+    d2 = ((xr - q64[qi]) ** 2).sum(1)
+    band = (q.shape[1] + 3) * U * (qn[qi, 0] + xr.norm(dim=1)) ** 2 + 4 * U * r2
+    _require(not bool((d2 > r2 + band).any()), lambda: f"{label}: a returned point lies outside the radius")
+    got_in = torch.zeros_like(sure_in).index_add_(0, qi, (d2 < r2 - band).long())
+    _require(torch.equal(got_in, sure_in), lambda: (
+        f"{label}: {int((got_in != sure_in).sum())} queries miss points certainly inside the radius"))
+    _require(bool(((dists * dists - d2).abs() <= band).all()), lambda: f"{label}: a distance beyond the f32 bound")
+    return sure_in, undecided
+
+
+def _range_check_common(label, res, radius: float, n_pad: int):
+    """Per-query structure of range results: int32 ids, f32 ascending
+    distances within the radius, no id twice. Returns the counts."""
+    from tpu_knn_torch.methods.base import range_cap
+
+    counts = np.asarray([len(r.ids) for r in res])
+    for j, r in enumerate(res):
+        _require(r.ids.dtype == np.int32 and r.dists.dtype == np.float32,
+                 lambda: f"{label}: query {j} returned {r.ids.dtype} ids, {r.dists.dtype} distances")
+        _require(bool((r.dists <= radius).all()) and bool((np.diff(r.dists) >= 0).all()),
+                 lambda: f"{label}: query {j} has distances past the radius or out of order")
+        _require(len(np.unique(r.ids)) == len(r.ids) and bool((r.ids >= 0).all()),
+                 lambda: f"{label}: query {j} returned an id twice or a padding row")
+    cap = range_cap(counts.max(), n_pad)
+    print(f"[range] {label}: {len(res)} queries at radius {radius!r}: {int(counts.sum())} hits, "
+          f"{int((counts >= 10).sum())} queries with 10 or more, largest count {int(counts.max())}, "
+          f"cap {cap} of n_pad {n_pad}", flush=True)
+    _require(cap <= n_pad // 8, lambda: f"{label}: the cap {cap} is not well below n_pad {n_pad}")
+    return counts
+
+
+def _timed_range(label, idx, queries, radius, smi):
+    """Print the median of 5 host ms of range_query_batch, the peak device
+    memory of one run, and the device ms of its two passes (CUDA events,
+    mean of 3)."""
+    import torch
+    from tpu_knn_torch.methods import seq_search as SS
+    from tpu_knn_torch.methods.base import range_cap
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res = idx.range_query_batch(queries, radius)
+    peak = torch.cuda.max_memory_allocated()
+    med, tmin, tmax = _median_ms(lambda: idx.range_query_batch(queries, radius), 5)
+    m = idx.method
+    qenc = m.space.encode_queries(queries)
+    cap = range_cap(max(len(r.ids) for r in res), m.data.ids.shape[0])
+    stages = {
+        "counts_pass": _cuda_ms(lambda: SS._range_counts_device(
+            m.space, qenc, m.data, radius, m._chunk, m.precision), 3),
+        "collect_pass": _cuda_ms(lambda: SS._range_collect_device(
+            m.space, qenc, m.data, radius, cap, m._chunk, m.precision), 3),
+    }
+    print(f"[range] {label} range_query_batch Q={len(queries)}: median {med:.3f} ms of 5 (min {tmin:.3f}, "
+          f"max {tmax:.3f}), {len(queries) / med * 1e3:.1f} qps; peak allocated {peak / 2**30:.3f} GiB; "
+          f"device ms per pass (chunk {m._chunk}, cap {cap}) "
+          f"{json.dumps({k: round(v, 4) for k, v in stages.items()})}; {smi}", flush=True)
+
+
+def _phase_range(idx, sidx, queries, qu8, corpus, cu8, d10, d8, smi):
+    """Range search on phase 4's l2 index and phase 6's l2sqr_sift index."""
+    import torch
+
+    dev = torch.device("cuda", 0)
+    radius = float(np.median(d10[:, K - 1]))
+    res = idx.range_query_batch(queries, radius)
+    n_pad = idx.method.data.ids.shape[0]
+    counts = _range_check_common(f"l2 {N_CORPUS} rows", res, radius, n_pad)
+    x_dev = torch.from_numpy(corpus).to(dev)
+    sure_in, undecided = _range_check_l2(f"l2 {N_CORPUS} rows", res, torch.from_numpy(queries).to(dev), x_dev, radius)
+    del x_dev
+    n_und = int(undecided.sum())
+    print(f"[oracle] range l2 {N_CORPUS} rows: every query returned all {int(sure_in.sum())} points certainly inside "
+          f"the radius and none certainly outside; {n_und} points lie within the f32 bound of the radius "
+          f"and {int(counts.sum() - sure_in.sum())} of them were returned", flush=True)
+    _timed_range(f"l2 {N_CORPUS} x {DIM}", idx, queries, radius, smi)
+
+    # l2sqr_sift: exact integer distances against the exact integer oracle
+    r8 = float(np.median(d8[:, K - 1]))
+    res8 = sidx.range_query_batch(qu8, r8)
+    counts8 = _range_check_common(f"l2sqr_sift {N_CORPUS} rows", res8, r8, sidx.method.data.ids.shape[0])
+    q8 = torch.from_numpy(qu8).to(dev).double()
+    oracle = torch.zeros(len(res8), dtype=torch.int64, device=dev)
+    for s in range(0, cu8.shape[0], 65536):
+        xc = torch.from_numpy(cu8[s:s + 65536]).to(dev).double()
+        d2 = (q8 * q8).sum(1, keepdim=True) + (xc * xc).sum(1)[None, :] - 2.0 * (q8 @ xc.T)
+        oracle += (d2 <= r8).sum(1)
+    _require(np.array_equal(oracle.cpu().numpy(), counts8), lambda: (
+        f"l2sqr_sift range: counts differ from the integer oracle at "
+        f"{int((oracle.cpu().numpy() != counts8).sum())} queries"))
+    qi = torch.as_tensor(np.repeat(np.arange(len(res8)), counts8), device=dev)
+    ids = torch.as_tensor(np.concatenate([r.ids for r in res8]).astype(np.int64), device=dev)
+    x8 = torch.from_numpy(cu8).to(dev)
+    exact = ((x8[ids].double() - q8[qi]) ** 2).sum(1)
+    got = torch.as_tensor(np.concatenate([r.dists for r in res8]), device=dev).double()
+    _require(torch.equal(exact, got) and bool((exact <= r8).all()), lambda: (
+        "l2sqr_sift range: a returned distance is not its id's exact integer distance within the radius"))
+    del x8
+    one = sidx.range_query(qu8[0], r8)
+    _require(np.array_equal(one.ids, res8[0].ids) and np.array_equal(one.dists, res8[0].dists),
+             lambda: "l2sqr_sift range_query of one point differs from its range_query_batch row")
+    print(f"[oracle] range l2sqr_sift {N_CORPUS} rows: counts equal to the exact integer oracle for every query, "
+          f"every returned distance its id's exact distance, so the id sets are equal; range_query of "
+          f"query 0 equal to its batch row", flush=True)
+    _timed_range(f"l2sqr_sift {N_CORPUS} x {DIM} uint8", sidx, qu8, r8, smi)
+
+
+def _phase_persist(idx, queries, d10, i10):
+    """Save phase 4's index in both save modes, load it in both load modes,
+    and hold knn results to those before the save, bit for bit."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_knn_torch import Index
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_persist_")
+    try:
+        for save_data in (True, False):
+            path = os.path.join(tmp, f"ix_{save_data}")
+            ts = time.perf_counter()
+            idx.save(path, save_data=save_data)
+            save_s = time.perf_counter() - ts
+            sizes = {f: os.path.getsize(os.path.join(tmp, f)) for f in sorted(os.listdir(tmp))
+                     if f.startswith(f"ix_{save_data}")}
+            for load_data in (True, False):
+                tl = time.perf_counter()
+                back = Index.load(path, load_data=load_data, device="cuda")
+                torch.cuda.synchronize()
+                load_s = time.perf_counter() - tl
+                d, i = back.knn_query_batch(queries, K)
+                _require(np.array_equal(d, d10) and np.array_equal(i, i10), lambda: (
+                    f"persist save_data={save_data} load_data={load_data}: results differ from before "
+                    f"the save at {int((i != i10).sum())} ids, {int((d != d10).sum())} distances"))
+                _require(back.method.data.vecs.device.type == "cuda", lambda: "loaded index is not on the card")
+                da, ia = back.knn_query_batch_async(queries, K).result()
+                _require(np.array_equal(da, d10) and np.array_equal(ia, i10),
+                         lambda: "knn_query_batch_async differs from knn_query_batch")
+                print(f"[persist] save_data={save_data} load_data={load_data}: save {save_s:.3f} s, "
+                      f"load (read + rebuild on the card) {load_s:.3f} s, file bytes {sizes}; knn_query_batch "
+                      f"and knn_query_batch_async k={K} bit-identical to before the save", flush=True)
+                del back
+                torch.cuda.empty_cache()
+            for f in list(sizes):
+                os.remove(os.path.join(tmp, f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+N_ANGULAR = 1_183_514  # glove-100-angular's corpus (ann-benchmarks)
+DIM_ANGULAR = 100
+
+
+def _phase_angular(smi):
+    """The scalar-product spaces at the glove-100-angular shape, the gold
+    standard over that corpus and the metrics of the "high" tier."""
+    import torch
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval import GoldStandard, per_query_metrics, summarize
+    from tpu_knn_torch.eval.datasets import clustered
+    from tpu_knn_torch.methods import seq_search as SS
+    from tpu_knn_torch.ops import groupmin as GM
+
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    xall = clustered(N_ANGULAR + N_QUERIES, DIM_ANGULAR, seed=1)
+    corpus, queries = xall[:N_ANGULAR], xall[N_ANGULAR:]
+    print(f"[angular] data clustered({N_ANGULAR + N_QUERIES}, {DIM_ANGULAR}, seed=1) in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+
+    aidx = Index("angulardist", Params(dim=DIM_ANGULAR), method="seq_search", device="cuda")
+    tb = time.perf_counter()
+    aidx.add_dense_batch(corpus)
+    aidx.build_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    torch.cuda.reset_peak_memory_stats()
+    GM.reset_launches()
+    da, ia = aidx.knn_query_batch(queries, K)
+    launches = dict(GM.launches)
+    route = aidx.method.last_route
+    print(f"[angular] build {build_s:.3f} s for {N_ANGULAR} x {DIM_ANGULAR} (normalized, padded to "
+          f"{aidx.method.data.vecs.shape[1]} columns); first query: route {route}, launches {launches}; "
+          f"peak allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    _require(route == "twopass" and launches["float32"] > 0,
+             lambda: f"the angular path took the {route} route with launches {launches}")
+    _require(np.isfinite(da).all() and (np.diff(da, axis=1) >= 0).all() and (da >= 0).all()
+             and (da <= np.pi).all(), lambda: "angular distances not finite, ascending and in [0, pi]")
+    med, tmin, tmax = _median_ms(lambda: aidx.knn_query_batch(queries, K))
+    print(f"[angular] knn_query_batch Q={N_QUERIES} k={K} over {N_ANGULAR} x {DIM_ANGULAR}: median "
+          f"{med:.3f} ms of 7 (min {tmin:.3f}, max {tmax:.3f}), {N_QUERIES / med * 1e3:.1f} qps on {smi}",
+          flush=True)
+    stages, qenc = _breakdown(aidx, queries, K)
+    print("[angular breakdown] device ms per stage: "
+          + json.dumps({k: round(v, 4) for k, v in stages.items()}), flush=True)
+
+    # the f32 and bf16x3 kernels at these shapes: scale -1, zero q_term, x_term = padding only
+    data = aidx.method.data
+    qk, qtk, xtk, scale = SS._kernel_inputs(aidx.space, qenc, data)
+    _require(scale == -1.0 and xtk is data.extra["pad"] and not bool(qtk.any()),
+             lambda: "angular kernel inputs are not (scale -1, q_term 0, x_term pad)")
+    for tier in ("float32", "high"):
+        out = GM.fused_groupmin(qk, data.vecs, qtk, xtk, scale, precision=tier)
+        ref = GM.fused_groupmin_reference(qk, data.vecs, qtk, xtk, scale, precision=tier)
+        bound, mag = _groupmin_bound(qk, data.vecs, qtk, xtk, scale)
+        # pad groups hold 1e30: compare the real groups
+        real = data.count // 128
+        diff = (out.double() - ref.double()).abs()[:, :real]
+        rel = float((diff / mag[:, :real]).max())
+        lim = float((diff / (2 * bound[:, :real])).max()) if tier == "float32" else rel / 1e-5
+        ms = _cuda_ms(lambda: GM.fused_groupmin(qk, data.vecs, qtk, xtk, scale, precision=tier), 10)
+        plain_ms = _cuda_ms(lambda: GM.fused_groupmin_reference(qk, data.vecs, qtk, xtk, scale,
+                                                                precision=tier), 3)
+        print(f"[kernel] {tier} at the angular shapes Q={qk.shape[0]} N={data.vecs.shape[0]} "
+              f"D={data.vecs.shape[1]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; max |kernel - plain| "
+              f"{float(diff.max()):.4g} ({rel:.3g} of the magnitude), {lim:.3g} of the limit "
+              f"({'2x the f32 bound' if tier == 'float32' else '1e-5 of the magnitude'}); {smi}", flush=True)
+        _require(lim <= 1.0 and bool(torch.isfinite(out).all()),
+                 lambda: f"{tier} kernel vs plain at the angular shapes: {lim} of the limit")
+    del out, ref, bound, mag, diff
+
+    # float64 oracle on the cosines of the normalized rows the index stores
+    x_dev = data.vecs[:data.count]
+    q_dev = qenc["q"][:N_QUERIES]
+    # arccos has unbounded slope at 1: hold cos(angle), not the angle, to the oracle
+    _check_dot_oracle("angulardist k=10", ia, q_dev, x_dev, K, da, np.cos)
+    torch.cuda.reset_peak_memory_stats()
+    da100, ia100 = aidx.knn_query_batch(queries, 100)
+    print(f"[memory] angular peak allocated during the k=100 query "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    _check_dot_oracle("angulardist k=100", ia100, q_dev, x_dev, 100)
+    del da100, ia100
+
+    # the gold standard over the same corpus and space, and its cache
+    import os
+    import tempfile
+
+    gold = GoldStandard(aidx.space, aidx.store)
+    gd, gi = gold.compute_knn(queries, K)
+    _require(np.array_equal(gd, da) and np.array_equal(gi, ia),
+             lambda: "GoldStandard.compute_knn differs from the index's results")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gold_") as tmp:
+        gold.save_cache(os.path.join(tmp, "gold"))
+        cd, ci = GoldStandard.load_cache(os.path.join(tmp, "gold"))
+    _require(np.array_equal(cd, gd) and np.array_equal(ci, gi) and cd.dtype == gd.dtype
+             and ci.dtype == gi.dtype, lambda: "gold-standard cache round trip is not exact")
+    print(f"[gold] GoldStandard.compute_knn(queries, {K}) equal to the index's results; cache round "
+          f"trip exact", flush=True)
+    del gold
+
+    # pass1Precision "high" on the same index: bit-identical to the f32 tier
+    aidx.build_index(Params(pass1Precision="high"))
+    GM.reset_launches()
+    dh, ih = aidx.knn_query_batch(queries, K)
+    lh = dict(GM.launches)
+    m = aidx.method
+    print(f"[angular high] route {m.last_route}, launches {lh}, certified {m.last_certified:.6f}, "
+          f"redone blocks {m.last_redone_blocks} of {-(-N_QUERIES // SS._CERT_QBLK)}", flush=True)
+    _require(m.last_route == "twopass" and lh["high"] > 0,
+             lambda: f"the angular high path took the {m.last_route} route with launches {lh}")
+    _same_results(f"angular high k={K}", dh, ih, da, ia)
+    medh, tminh, tmaxh = _median_ms(lambda: aidx.knn_query_batch(queries, K))
+    print(f"[angular high] knn_query_batch Q={N_QUERIES} k={K}: median {medh:.3f} ms of 7 (min "
+          f"{tminh:.3f}, max {tmaxh:.3f}); f32 tier {med:.3f} ms; {smi}", flush=True)
+    summ = summarize(per_query_metrics(gd, gi, dh, ih))
+    print(f"[metrics] high tier against the gold standard: {json.dumps(summ)}", flush=True)
+    _require(summ["recall"] == 1.0 and summ["number_closer"] == 0.0,
+             lambda: f"high tier metrics against the gold standard: {summ}")
+    del aidx, m, data, qenc, qk, qtk, xtk, x_dev, q_dev
+    torch.cuda.empty_cache()
+
+    # cosinesimil on the same data: the same ids as angulardist, 1 - cos distances
+    cidx = Index("cosinesimil", Params(dim=DIM_ANGULAR), method="seq_search", device="cuda")
+    cidx.add_dense_batch(corpus)
+    GM.reset_launches()
+    dc, ic = cidx.knn_query_batch(queries, K)
+    _require(cidx.method.last_route == "twopass" and GM.launches["float32"] > 0,
+             lambda: f"cosinesimil took the {cidx.method.last_route} route, launches {GM.launches}")
+    cdata = cidx.method.data
+    cq = cidx.space.encode_queries(queries)["q"]
+    _check_dot_oracle("cosinesimil k=10", ic, cq, cdata.vecs[:cdata.count], K, dc, lambda d: 1.0 - d)
+    same = ic == ia
+    xo = cdata.vecs[torch.as_tensor(np.where(same, ic, ia), device=dev).long()].double()
+    xc = cdata.vecs[torch.as_tensor(ic, device=dev).long()].double()
+    gap = ((xo - xc) * cq.double()[:, None, :]).sum(-1).abs().cpu().numpy()
+    tie = 2 * (DIM + 2) * U * 1.01
+    _require(bool((same | (gap <= tie)).all()), lambda: "cosinesimil ids differ from angulardist's beyond ties")
+    print(f"[cosine] cosinesimil k={K}: ids equal to angulardist's at {int(same.sum())}/{same.size} slots, "
+          f"the rest within the f32 bound of each other's cosine", flush=True)
+    del cidx, cdata, cq, xo, xc
+    torch.cuda.empty_cache()
+
+    # negdotprod on the raw rows
+    nidx = Index("negdotprod", Params(dim=DIM_ANGULAR), method="seq_search", device="cuda")
+    nidx.add_dense_batch(corpus)
+    GM.reset_launches()
+    dn, in_ = nidx.knn_query_batch(queries, K)
+    _require(nidx.method.last_route == "twopass" and GM.launches["float32"] > 0,
+             lambda: f"negdotprod took the {nidx.method.last_route} route, launches {GM.launches}")
+    ndata = nidx.method.data
+    nq = nidx.space.encode_queries(queries)["q"]
+    _check_dot_oracle("negdotprod k=10", in_, nq, ndata.vecs[:ndata.count], K, dn, np.negative)
+    del nidx, ndata, nq
+    torch.cuda.empty_cache()
+
+
+def _phase_precision(corpus, queries, smi):
+    """``precision`` of the single-pass scan (space.block's matmul tier)
+    on phase 5's 3000-row index."""
+    import torch
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval import per_query_metrics, summarize
+
+    dev = torch.device("cuda", 0)
+    q_dev, x_dev = torch.from_numpy(queries).to(dev), torch.from_numpy(corpus[:3000]).to(dev)
+    out = {}
+    for precision in ("float32", "high", "bfloat16"):
+        pidx = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+        pidx.add_dense_batch(corpus[:3000])
+        pidx.build_index(Params(precision=precision))
+        out[precision] = pidx.knn_query_batch(queries, K)
+        _require(pidx.method.last_route == "single", lambda: f"precision {precision}: not the single-pass route")
+    # bf16x3 drops lo.lo and the second-level residuals: at most 3 * 2^-18 of
+    # |q||x| (with headroom), plus the f32 sums of its three products
+    high_rel = 3 * 2.0**-18 * 1.02 + 2 * (DIM + 2) * U
+    _check_against_oracle("precision high, single pass, 3000 rows", out["high"][1], out["high"][0],
+                          q_dev, x_dev, K, dot_rel=high_rel)
+    gd, gi = out["float32"]
+    bd, bi = out["bfloat16"]
+    summ = summarize(per_query_metrics(gd, gi, bd, bi, check_invariant=False))
+    print(f"[precision] bfloat16, single pass, 3000 rows, k={K}: against the f32 gold "
+          f"{json.dumps(summ)} (approximate by design; distances at the bf16 tier)", flush=True)
+    _require(summ["recall"] > 0.0, lambda: f"bfloat16 recall {summ['recall']}")
 
 
 def main() -> int:
@@ -475,9 +929,19 @@ def main() -> int:
     print(f"[oracle] int8 path: {N_QUERIES} queries x k={K}: distances equal to the exact integer "
           f"oracle at every slot; ids equal at {int((i8_t == oi8).sum())}/{i8_t.numel()} slots, the "
           f"others at exactly equal distances", flush=True)
-    del x8_dev, sidx, sdata, qenc8, qk8, qtk8, xtk8
+    del x8_dev, sdata, qenc8, qk8, qtk8, xtk8
     torch.cuda.empty_cache()
     t0 = _phase("int8 path", t0)
+
+    # ---- 9. range, on the indexes of phases 4 and 6 ----
+    _phase_range(idx, sidx, queries, qu8, corpus, cu8, d10, d8, smi)
+    del sidx
+    torch.cuda.empty_cache()
+    t0 = _phase("range", t0)
+
+    # ---- 10. persist, phase 4's index ----
+    _phase_persist(idx, queries, d10, i10)
+    t0 = _phase("persist", t0)
 
     # ---- 7. the reduced tiers on the f32 main path ----
     tier_rec = {}
@@ -563,6 +1027,17 @@ def main() -> int:
         _check_against_oracle(f"forced fallback {tier}", if_, df, torch.from_numpy(fq).to(dev), x_f, K)
     del x_f
     t0 = _phase("forced fallback", t0)
+
+    # ---- 11 and 12. the scalar-product spaces at the glove-100-angular shape,
+    # the gold standard and the metrics ----
+    del idx
+    torch.cuda.empty_cache()
+    _phase_angular(smi)
+    t0 = _phase("angular, gold standard and metrics", t0)
+
+    # ---- 13. precision of the single-pass scan ----
+    _phase_precision(corpus, queries, smi)
+    t0 = _phase("precision", t0)
 
     src_mma = "tpu_knn_torch/csrc/groupmin_mma.cu"
     record = {"kernels": [

@@ -126,7 +126,8 @@ def test_registry_parity():
     assert tpu_knn_torch.clear_upload_cache() == 0
     assert TR.SPACE_TYPES_WHITELIST == JR.SPACE_TYPES_WHITELIST
     assert TR.SPACE_ALIASES == JR.SPACE_ALIASES
-    assert tpu_knn_torch.known_spaces() == ["l2", "l2sqr_sift"]
+    assert tpu_knn_torch.known_spaces() == ["angulardist", "cosinesimil", "l2", "l2sqr_sift", "negdotprod"]
+    assert set(tpu_knn_torch.known_spaces()) <= set(tpu_knn.known_spaces())
     assert tpu_knn_torch.known_methods() == ["brute_force", "seq_search"]
     for name in ("l2", "cosine", "sparse_l2", "no_such_space"):
         assert tpu_knn_torch.is_valid_space_type(name) == tpu_knn.is_valid_space_type(name)

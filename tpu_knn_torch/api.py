@@ -10,10 +10,13 @@ Preserved semantics:
   * validation: l2*/cosine* require dim (lib.zig:351-378);
   * query batches padded to power-of-two buckets, as tpu_knn does.
 
-Ported so far: dense f32 and uint8 data, the ``l2`` and ``l2sqr_sift``
-spaces and the exact scan (``seq_search``/``brute_force``) with every
-pass-1 precision tier. Range search, async queries,
-save/load and ``mesh=`` come in later slices (ROADMAP.md).
+Ported so far: dense f32 and uint8 data; the ``l2``, ``cosinesimil``
+(alias ``cosine``), ``angulardist``, ``negdotprod`` and ``l2sqr_sift``
+spaces; the exact scan (``seq_search``/``brute_force``) with every
+pass-1 precision tier and every ``precision``; kNN, async kNN and range
+queries; save/load in tpu_knn's format v3 (io/persist.py), so a file
+either package writes loads in the other. ``mesh=`` and the other
+methods come in later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -44,6 +47,24 @@ class QueryResult:
 
     def __repr__(self):
         return f"QueryResult(ids={self.ids.tolist()}, dists={self.dists.tolist()})"
+
+
+class KnnFuture:
+    """Handle for a dispatched-but-unread kNN batch
+    (:meth:`Index.knn_query_batch_async`). ``result()`` returns the same
+    (dists, ids) pair ``knn_query_batch`` would; it is idempotent."""
+
+    __slots__ = ("_materialize", "_value")
+
+    def __init__(self, materialize):
+        self._materialize = materialize
+        self._value = None
+
+    def result(self) -> tuple[np.ndarray, np.ndarray]:
+        if self._materialize is not None:
+            self._value = self._materialize()
+            self._materialize = None
+        return self._value
 
 
 def _resolve_device(device) -> torch.device:
@@ -201,7 +222,10 @@ class Index:
             raise InvalidArgumentError("k must be positive")
         self._ensure_built()
         pts, b = self._bucket_query_points(points)
-        d, i = self.method.knn(pts, k)
+        return self._finish_knn(*self.method.knn(pts, k), b)
+
+    def _finish_knn(self, d, i, b: int):
+        """Slice a bucketed batch back to ``b`` queries; rint INT distances."""
         d, i = d[:b], i[:b]
         if self.dist_type is DistKind.INT:
             d = np.where(np.isfinite(d), np.rint(d), d)
@@ -223,6 +247,32 @@ class Index:
     def knn_query_batch_results(self, points: Any, k: int) -> list[QueryResult]:
         d, i = self.knn_query_batch(points, k)
         return [self._trim(dr, ir) for dr, ir in zip(d, i)]
+
+    def knn_query_batch_async(self, points: Any, k: int) -> KnnFuture:
+        """Dispatch a kNN batch and return a :class:`KnnFuture`; its
+        ``.result()`` is what knn_query_batch returns. Methods without a
+        device-resident result path (all ported ones) run synchronously
+        inside this call."""
+        if k <= 0:
+            raise InvalidArgumentError("k must be positive")
+        self._ensure_built()
+        pts, b = self._bucket_query_points(points)
+        done = self.method.knn_async(pts, k)
+        return KnnFuture(lambda: self._finish_knn(*done(), b))
+
+    def range_query(self, point: Any, radius: float) -> QueryResult:
+        batch = [point] if self.data_type is not DataKind.DENSE else np.asarray(point)[None, :]
+        return self.range_query_batch(batch, radius)[0]
+
+    def range_query_batch(self, points: Any, radius: float) -> list[QueryResult]:
+        """Batched range search: one QueryResult per query, the ids and
+        distances of every corpus point within ``radius``, ascending.
+        Results stream through the device in chunks, never as [Q, N]."""
+        self._ensure_built()
+        res = self.method.range(self._prep_query_points(points), radius)
+        if self.dist_type is DistKind.INT:
+            return [QueryResult(ids, np.rint(dists)) for ids, dists in res]
+        return [QueryResult(ids, dists) for ids, dists in res]
 
     def _prep_query_points(self, points: Any) -> np.ndarray:
         if self.data_type is DataKind.UINT8:
@@ -282,6 +332,23 @@ class Index:
 
     def borrow_data_dense(self, position: int) -> np.ndarray:
         return np.asarray(self.store.get_point(position))
+
+    # ---------------- persistence ----------------
+
+    def save(self, path: str, save_data: bool = True) -> None:
+        """Write ``path``.idx.npz (and ``path``.dat.npz with ``save_data``)
+        in tpu_knn's format v3."""
+        self._ensure_built()
+        from .io.persist import save_index
+
+        save_index(self, path, save_data)
+
+    @classmethod
+    def load(cls, path: str, load_data: bool = True, device: str | torch.device = "cuda") -> "Index":
+        """Load a format-v3 index written by either package onto ``device``."""
+        from .io.persist import load_index
+
+        return load_index(path, load_data, device)
 
     def memory_usage_bytes(self) -> int:
         """Bytes of the index's tensors on its device (reference:

@@ -18,13 +18,35 @@ from typing import Any, Sequence
 
 import numpy as np
 
-from ..core.dataset import DataStore
+from ..core.dataset import DataStore, round_up
 from ..core.errors import RuntimeNmsError, SpaceIncompatibleError
 from ..core.params import Params
 from ..spaces.base import Space
 
 #: Distances at or above this are padding/masked sentinels, never results.
 RESULT_DIST_CUTOFF = 1e29
+
+
+def range_cap(max_count: int, n_pad: int) -> int:
+    """Result slots per query of the collect pass: the largest count
+    rounded up to 128, at most the padded corpus."""
+    return min(round_up(int(max_count), 128), n_pad)
+
+
+def stream_range_results(counts: np.ndarray, data, collect):
+    """Shared tail of the streamed two-pass range scan: size the result cap
+    from the counts pass (:func:`range_cap`), run the collect pass, and
+    slice per-query (ids, dists).
+    ``collect(cap)`` returns ([Q, cap] dists, [Q, cap] corpus positions)
+    ascending with (+inf, -1) pads. Ids come back in ``data.ids``' int32,
+    dists in f32; a query without hits gets two empty arrays."""
+    f32 = np.zeros(0, np.float32)
+    if counts.max(initial=0) == 0:
+        return [(np.zeros(0, np.int32), f32) for _ in range(counts.shape[0])]
+    dk, pos = collect(range_cap(counts.max(), data.ids.shape[0]))
+    dk, pos = dk.cpu().numpy(), pos.cpu().numpy()
+    ids = data.ids.cpu().numpy()
+    return [(ids[pos[i, :c]].copy(), dk[i, :c].copy()) for i, c in enumerate(counts)]
 
 
 class Method:
@@ -58,12 +80,28 @@ class Method:
     def range(self, points: Any, radius: float) -> list[tuple[np.ndarray, np.ndarray]]:
         raise SpaceIncompatibleError(f"Range search is not supported by {self.name}!")
 
+    def knn_async(self, points: Any, k: int):
+        """Dispatch a kNN batch; return a zero-arg callable that gives
+        (dists, ids). Default: synchronous (already materialized)."""
+        d, i = self.knn(points, k)
+        return lambda: (d, i)
+
     # -- persistence (reference: index.h:56-63) --
     def save(self, path: str) -> None:
         raise RuntimeNmsError(f"save not supported by {self.name}")
 
     def load(self, path: str, store: DataStore) -> None:
         raise RuntimeNmsError(f"load not supported by {self.name}")
+
+    # -- persistence state hooks (used by io/persist.py) --
+    def state_arrays(self) -> dict:
+        """Method-specific index state as host arrays. Default: nothing,
+        restore() rebuilds."""
+        return {}
+
+    def restore(self, store: DataStore, state: dict, params: Params | None = None) -> None:
+        """Reconstruct from saved state; default rebuilds from the data."""
+        self.create_index(store, params)
 
     def aux_device_arrays(self):
         """Tensors beyond .data that count toward the index footprint

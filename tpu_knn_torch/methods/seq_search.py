@@ -2,8 +2,8 @@
 tpu_knn/methods/seq_search.py).
 
 Reference: include/method/seqsearch.h, src/method/seqsearch.cc, a
-per-object loop. Here it is a blocked scan over the whole query batch,
-in one of two routes (:meth:`SeqSearch._plan_knn`):
+per-object loop. Here it is a blocked scan over the whole query batch.
+kNN takes one of two routes (:meth:`SeqSearch._plan_knn`):
 
   * single pass (:func:`_knn_device`): a chunked matmul scan with a
     streaming top-k, for small corpora;
@@ -14,6 +14,11 @@ in one of two routes (:meth:`SeqSearch._plan_knn`):
     hold the exact top-k (ops/topk.py GROUP; for the reduced tiers under a
     certificate with a per-block f32 redo), and pass 2 gathers those
     groups' rows and re-scores them exactly.
+
+Range search (:meth:`SeqSearch.range`) streams [Q, chunk] blocks of
+``space.block`` twice: once to count the hits per query, once to keep a
+running smallest-``cap`` of them (:func:`_range_counts_device`,
+:func:`_range_collect_device`).
 
 This method is also the gold-standard generator of the evaluation
 harness (gold_standard.h:151-174).
@@ -29,11 +34,10 @@ from ..core.errors import IndexNotBuiltError
 from ..core.params import ParamManager, Params
 from ..core.registry import register_method
 from ..ops import groupmin as GM
-from ..ops.distance import check_precision
 from ..ops import topk as T
 from ..ops.graph import gather_row_groups, score_gathered
 from ..spaces.dense import ensure_cert_metadata
-from .base import Method
+from .base import Method, stream_range_results
 
 #: Worst-case certificate coefficients (|err| <= coeff * |q| * |x|), used
 #: only when the residual norms of ensure_cert_metadata are unavailable.
@@ -256,9 +260,11 @@ def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precisi
     tier returns are bit-identical to the f32 tier's. int8 corpora run the
     exact int8 tier whatever the precision.
 
+    ``precision`` (the single-pass scan's matmul tier) plays no part here:
+    pass 1 runs its kernel tier and pass 2 is always f32, as in tpu_knn.
+
     Returns (dists, ids, positions, certified fraction, redone blocks), the
     first four as tpu_knn's."""
-    check_precision(precision)  # pass 2's batched_dot is f32 only
     n_groups = data.ids.shape[0] // T.GROUP
     use_cert = (
         pass1_precision != "float32"
@@ -275,13 +281,39 @@ def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precisi
     return dk, _ids_of(data, pos), pos, ok, redone
 
 
+def _range_counts_device(space, qenc, data, radius: float, chunk: int, precision: str):
+    """Per-query |{x : d(q,x) <= radius}| as i32[Q]: one chunked scan, never
+    [Q, N] (reference seqsearch.cc:109-141; padded corpus rows carry a 1e30
+    term, so the radius test drops them)."""
+    nq = qenc["q"].shape[0]
+    acc = torch.zeros(nq, dtype=torch.int32, device=data.vecs.device)
+    for ci in range(data.ids.shape[0] // chunk):
+        d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        acc += (d <= radius).sum(dim=1, dtype=torch.int32)
+    return acc
+
+
+def _range_collect_device(space, qenc, data, radius: float, cap: int, chunk: int, precision: str):
+    """Hits within ``radius`` as ascending ([Q, cap] dists, positions);
+    slots past a query's count are (+inf, -1). A streaming smallest-``cap``
+    merge per chunk: device memory stays O(Q * (cap + chunk))."""
+
+    def chunk_dists(ci):
+        d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        return torch.where(d <= radius, d, T.INF)
+
+    return T.streaming_smallest_k(
+        chunk_dists, data.ids.shape[0] // chunk, chunk, qenc["q"].shape[0], cap, data.vecs.device
+    )
+
+
 @register_method("brute_force")  # the reference's PRIMARY registry name
 @register_method("seq_search")  # (seqsearch.h:22-23: brute_force, seq_search)
 class SeqSearch(Method):
-    """Exact kNN scan; the correctness oracle for every ANN method."""
+    """Exact kNN / range scan; the correctness oracle for every ANN method."""
 
     name = "seq_search"
-    supports_range = False  # range search is a later slice (ROADMAP.md)
+    supports_range = True
 
     DEFAULT_CHUNK = 8192
 
@@ -364,3 +396,28 @@ class SeqSearch(Method):
             ids = np.pad(ids, ((0, 0), (0, padw)), constant_values=-1)
         self.dist_comps += d.shape[0] * self.data.count
         return self._finalize_knn(d, ids)
+
+    def range(self, points, radius: float):
+        """Exact range search, streamed: a count pass sizes the result cap,
+        a second pass keeps a running smallest-``cap`` per query, so device
+        memory is O(Q * (cap + chunk)), never [Q, N] (tpu_knn's
+        SeqSearch.range; reference seqsearch.cc:109-141)."""
+        if self.data is None:
+            raise IndexNotBuiltError("seq_search: index not built")
+        qenc = self.space.encode_queries(points)
+        radius = float(radius)
+        counts = _range_counts_device(
+            self.space, qenc, self.data, radius, self._chunk, self.precision
+        ).cpu().numpy()
+        self.dist_comps += counts.shape[0] * self.data.count
+        return stream_range_results(
+            counts,
+            self.data,
+            lambda cap: _range_collect_device(
+                self.space, qenc, self.data, radius, cap, self._chunk, self.precision
+            ),
+        )
+
+    # -- the gold-standard hook (gold_standard.h analog) --
+    def exact_knn(self, points, k: int):
+        return self.knn(points, k)

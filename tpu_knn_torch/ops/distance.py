@@ -5,12 +5,23 @@ Almost every NMSLIB distance factors through a matmul:
     dist[i, j] = post( scale * <A(q_i), B(x_j)>  +  a(q_i) + b(x_j) + const )
 
 with per-space element transforms A/B and per-row terms a/b precomputed
-once at encode time (l2sqr: |q|^2 + |x|^2 - 2 q.x). Every product here is
-a full IEEE f32 matmul; int8 operands (l2sqr_sift) are cast to f32 first,
-which is exact (see :func:`int8_dot`). On CUDA that
-needs ``torch.backends.cuda.matmul.allow_tf32`` False and the float32
-matmul precision "highest" (PyTorch's defaults); the functions refuse to
-run otherwise rather than return TF32 distances, which keep about three
+once at encode time (l2sqr: |q|^2 + |x|^2 - 2 q.x; cosinesimil: 1 - qn.xn
+over pre-normalized rows). Every product here is an IEEE f32 matmul;
+int8 operands (l2sqr_sift) are cast to f32 first, which is exact (see
+:func:`int8_dot`). :func:`matmul` takes tpu_knn's precision names:
+
+  ``"float32"``   one f32 matmul (the exact/gold path);
+  ``"high"``      bf16x3: hi.hi + (hi.lo + lo.hi) of the bf16 splits of
+                  both operands, each an f32 matmul of bf16-rounded values;
+  ``"bfloat16"``  both operands rounded to bf16, one f32 matmul: exact
+                  products, f32 accumulation.
+
+The reduced tiers share ops/groupmin.py's ``_tier_dot`` with the pass-1
+kernels' plain versions; none of them is a bf16 matmul, whose output
+torch rounds to bf16. On CUDA every product needs
+``torch.backends.cuda.matmul.allow_tf32`` False and the float32 matmul
+precision "highest" (PyTorch's defaults); the functions refuse to run
+otherwise rather than return TF32 distances, which keep about three
 decimal digits and reorder near neighbours.
 """
 
@@ -20,13 +31,12 @@ from typing import Callable
 
 import torch
 
+from .groupmin import PRECISIONS, _tier_dot
+
 
 def check_precision(precision: str) -> None:
-    if precision != "float32":
-        raise NotImplementedError(
-            f"precision {precision!r}: only the float32 tier is ported "
-            "(ROADMAP.md, TPU kernels to port)"
-        )
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision {precision!r}; known: {list(PRECISIONS)}")
 
 
 def require_ieee_f32(t: torch.Tensor) -> None:
@@ -42,10 +52,10 @@ def require_ieee_f32(t: torch.Tensor) -> None:
 
 
 def matmul(q: torch.Tensor, x: torch.Tensor, precision: str = "float32") -> torch.Tensor:
-    """[Q,D] @ [C,D]^T -> f32[Q,C] in full IEEE f32."""
+    """[Q,D] @ [C,D]^T -> f32[Q,C] at ``precision`` (module docstring)."""
     check_precision(precision)
     require_ieee_f32(q)
-    return q @ x.T
+    return _tier_dot(q, x, precision)
 
 
 def factored(
@@ -92,3 +102,33 @@ def batched_dot(q: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
 
 def sq_norms(v: torch.Tensor) -> torch.Tensor:
     return torch.sum(v * v, dim=-1)
+
+
+# ---------------- concrete factored families ----------------
+
+
+def l2sqr_blocked(q, x, q_sq=None, x_sq=None, precision="float32"):
+    """Squared L2 via the norm identity."""
+    q_sq = sq_norms(q) if q_sq is None else q_sq
+    x_sq = sq_norms(x) if x_sq is None else x_sq
+    return torch.clamp_min(factored(q, x, q_sq, x_sq, scale=-2.0, precision=precision), 0.0)
+
+
+def l2_blocked(q, x, q_sq=None, x_sq=None, precision="float32"):
+    return torch.sqrt(l2sqr_blocked(q, x, q_sq, x_sq, precision))
+
+
+def cosine_blocked(qn, xn, precision="float32"):
+    """1 - cos over pre-normalized rows (reference: space_scalar.h
+    NormCosine)."""
+    return torch.clamp_min(factored(qn, xn, scale=-1.0, const=1.0, precision=precision), 0.0)
+
+
+def angular_blocked(qn, xn, precision="float32"):
+    """arccos of the cosine of pre-normalized rows, clipped to [-1, 1]
+    first: f32 rounding can carry a cosine just past 1."""
+    return torch.arccos(torch.clamp(matmul(qn, xn, precision), -1.0, 1.0))
+
+
+def negdot_blocked(q, x, precision="float32"):
+    return factored(q, x, scale=-1.0, precision=precision)

@@ -41,6 +41,8 @@ import torch
 
 GROUP = 128
 TIERS = ("float32", "int8", "high", "bfloat16")
+#: tpu_knn's matmul precision names; int8 is picked by the operands' dtype
+PRECISIONS = ("float32", "high", "bfloat16")
 
 _PKG = Path(__file__).resolve().parent.parent
 #: library name -> CUDA source
@@ -150,7 +152,7 @@ def _load(name: str):
 def tier_of(q: torch.Tensor, precision: str) -> str:
     """The tier a call runs: int8 inputs run the int8 tier whatever
     ``precision`` says (as the TPU kernel does); f32 inputs run ``precision``."""
-    if precision not in ("float32", "high", "bfloat16"):
+    if precision not in PRECISIONS:
         raise ValueError(f"fused_groupmin: unknown precision {precision!r}")
     return "int8" if q.dtype == torch.int8 else precision
 
