@@ -8,13 +8,17 @@ printed as it ends, each fatal on failure:
 
  1. environment: torch/CUDA versions, the card's name and power limit;
     IEEE f32 matmuls (no TF32) required;
- 2. build: compile csrc/groupmin.cu and csrc/groupmin_mma.cu for sm_90a,
-    one nvcc each, side by side; registers and spills of every kernel;
+ 2. build: compile csrc/groupmin.cu (f32), csrc/groupmin_mma.cu (int8)
+    and csrc/groupmin_wgmma.cu (bf16x3, bf16) for sm_90a, one nvcc each,
+    side by side; registers and spills of every kernel, the build time;
  3. the f32 group-min kernel against its plain PyTorch version computed in
     float64, on 131072 sift_like rows, Q in {2048, 1000 (ragged)}; then,
     on the same rows, the int8 kernel bit-equal to its plain version and
     the bf16x3 and bf16 kernels within 1e-5 (relative to the magnitude)
-    of theirs and within the certificate's eps of the f32 kernel;
+    of theirs and within the certificate's eps of the f32 kernel; then the
+    same two checks of the bf16x3 and bf16 kernels at the edge shapes
+    Q in {1, 7, 256, 1000, 2048}, N in {128, 128*63, 20096},
+    D in {24, 128, 136, 384, 960};
  4. the main path: Index("l2", Params(dim=128), method="seq_search",
     device="cuda") over 1,000,000 sift_like rows (the SIFT-1M shape of
     ann-benchmarks' sift-128-euclidean), 2048 queries at k=10, on the
@@ -37,6 +41,9 @@ printed as it ends, each fatal on failure:
     certificate fail in the first 256-query block, which re-runs the f32
     kernel, while under "high" the second block keeps its certified
     reduced selection; ids still match the float64 oracle except on ties.
+ 8b. gist-960's width: Index("l2", Params(dim=960)) over 20,096
+    sift_like rows, 256 queries, the f32 tier against the float64 oracle
+    and "high"/"bfloat16" (K chunks in the kernel) bit-identical to it.
 
 Added phases (the first two run right after phase 6, on the indexes of
 phases 4 and 6, before phase 7 rebuilds phase 4's index):
@@ -71,7 +78,10 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     "high" (ids equal to the f64 oracle except on ties of the tier's
     error bound) and "bfloat16" (recall@10 against the f32 gold).
 
-The last two lines are the kernels' JSON record and
+Every [kernel] line at the main path's shapes prints the kernel's bound
+(the larger of its bytes over 3.35 TB/s and its operations over the
+tier's dense peak: 67 TFLOP/s f32, 989 bf16, 1,979 TOP/s int8) and its
+share of it. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card or any phase fails.
 """
@@ -127,17 +137,92 @@ def _cuda_ms(fn, reps: int) -> float:
 
 def _ptxas_summary(log: str) -> list[str]:
     """'kernel: registers ..., spills ...' for each entry function of nvcc's
-    -Xptxas=-v output (empty when the library came from the build cache)."""
+    -Xptxas=-v output (empty when the library came from the build cache);
+    template arguments in angle brackets."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
-        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel)", ln)
+        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel|split_queries_kernel)(I\w*)?", ln)
         if m:
-            name, spill = m.group(1), ""
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            name, spill = m.group(1) + (f"<{','.join(args)}>" if args else ""), ""
         elif "spill" in ln:
             spill = ln.strip()
         elif "registers" in ln and name:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
     return out
+
+
+#: dense peaks of one H100 SXM (NVIDIA's data sheet) per tier, and its HBM rate
+PEAK_OPS = {"float32": 67e12, "int8": 1979e12, "high": 989e12, "bfloat16": 989e12}
+HBM_BYTES_PER_S = 3.35e12
+
+
+def _bound_ms(tier: str, q, x):
+    """(least ms, "bytes" or "operations") of one group-min call: q, x and
+    the two row terms read once and the [Q, N/128] mins written once, over
+    the HBM rate, against its multiply-adds (x2; three bf16 products per
+    pair for bf16x3) over the tier's dense peak."""
+    qn, d = q.shape
+    n = x.shape[0]
+    nbytes = q.numel() * q.element_size() + x.numel() * x.element_size() + 4 * (qn + n) + 4 * qn * (n // 128)
+    ops = 2.0 * qn * n * d * (3 if tier == "high" else 1)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[tier]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _edge_sweep(dev, kernel_err):
+    """The bf16x3 and bf16 kernels at the edge shapes of the wgmma design:
+    Q in {1, 7, 256, 1000, 2048} (one partial 64-query tile up to 32 full
+    ones), N in {128, 128*63, 20096} (one group; an odd group count, so a
+    two-group corpus tile is half empty), D in {24, 128, 136, 384, 960}
+    (k-step tails; one, two, three, six and fifteen 64-k slabs, which take
+    each buffering mode of the kernel: at 384 one consumer warpgroup for
+    bf16x3, at 960, gist's width, K chunks for both tiers). Each within
+    1e-5 of the magnitude of its plain version and within the
+    certificate's eps of the f32 kernel."""
+    import torch
+    from tpu_knn_torch.core.dataset import DenseDeviceData
+    from tpu_knn_torch.eval.datasets import sift_like
+    from tpu_knn_torch.methods import seq_search as SS
+    from tpu_knn_torch.ops import groupmin as GM
+    from tpu_knn_torch.spaces.dense import ensure_cert_metadata
+
+    nmax, qmax = 20096, 2048
+    data = sift_like(nmax + qmax, 960, seed=2)
+    worst = {tier: [0.0, 0.0] for tier in ("high", "bfloat16")}
+    shapes = 0
+    for d in (24, 128, 136, 384, 960):
+        x_all = torch.from_numpy(np.ascontiguousarray(data[:nmax, :d])).to(dev)
+        q_all = torch.from_numpy(np.ascontiguousarray(data[nmax:, :d])).to(dev)
+        for n in (128, 128 * 63, nmax):
+            x = x_all[:n]
+            xt = (x * x).sum(1)
+            slab = DenseDeviceData(vecs=x, ids=torch.arange(n, dtype=torch.int32, device=dev), count=n, dim=d)
+            ensure_cert_metadata(slab)
+            for nq in (1, 7, 256, 1000, qmax):
+                q = q_all[:nq]
+                qt = (q * q).sum(1)
+                f32 = GM.fused_groupmin(q, x, qt, xt, -2.0)
+                _, mag = _groupmin_bound(q, x, qt, xt, -2.0)
+                for tier in ("high", "bfloat16"):
+                    out = GM.fused_groupmin(q, x, qt, xt, -2.0, precision=tier)
+                    torch.cuda.synchronize()
+                    ref = GM.fused_groupmin_reference(q, x, qt, xt, -2.0, precision=tier)
+                    diff = (out.double() - ref.double()).abs()
+                    rel = float((diff / mag).max())
+                    eps = SS._pass1_eps(q, slab, -2.0, tier).double()
+                    ratio = float(((out.double() - f32.double()).abs().amax(dim=1) / eps).max())
+                    _require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                             lambda: f"{tier} at Q={nq} N={n} D={d}: output not finite or not {tuple(ref.shape)}")
+                    _require(rel <= 1e-5, lambda: f"{tier} kernel vs plain at Q={nq} N={n} D={d}: {rel} of the magnitude")
+                    _require(ratio <= 1.0, lambda: f"{tier} kernel beyond eps of the f32 kernel at Q={nq} N={n} D={d}: {ratio}")
+                    kernel_err[tier] = max(kernel_err[tier], float(diff.max()))
+                    worst[tier] = [max(worst[tier][0], rel), max(worst[tier][1], ratio)]
+                shapes += 1
+    for tier, (rel, ratio) in worst.items():
+        print(f"[kernel] {tier} edge sweep, {shapes} shapes (Q in 1, 7, 256, 1000, 2048; N in 128, 8064, "
+              f"20096; D in 24, 128, 136, 384, 960): max |kernel - plain| relative to the magnitude {rel:.3g} (limit "
+              f"1e-5); max over queries of max_g |kernel - f32 kernel| / eps {ratio:.3g} (limit 1)", flush=True)
 
 
 def _median_ms(fn, reps: int = 7):
@@ -505,6 +590,10 @@ def _phase_persist(idx, queries, d10, i10):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+#: (ms, ms over the f32 kernel's 13.294 ms) of each wgmma tier's kernel
+#: before the wgmma design (the mma.sync kernels), at the 1M l2 shapes
+OLD_RATIO = {"high": (6.669, 0.502), "bfloat16": (3.514, 0.264)}
+
 N_ANGULAR = 1_183_514  # glove-100-angular's corpus (ann-benchmarks)
 DIM_ANGULAR = 100
 
@@ -518,6 +607,7 @@ def _phase_angular(smi):
     from tpu_knn_torch.eval.datasets import clustered
     from tpu_knn_torch.methods import seq_search as SS
     from tpu_knn_torch.ops import groupmin as GM
+    from tpu_knn_torch.spaces.dense import ensure_cert_metadata
 
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
@@ -557,7 +647,9 @@ def _phase_angular(smi):
     qk, qtk, xtk, scale = SS._kernel_inputs(aidx.space, qenc, data)
     _require(scale == -1.0 and xtk is data.extra["pad"] and not bool(qtk.any()),
              lambda: "angular kernel inputs are not (scale -1, q_term 0, x_term pad)")
-    for tier in ("float32", "high"):
+    ensure_cert_metadata(data)
+    f32 = None
+    for tier in ("float32", "high", "bfloat16"):
         out = GM.fused_groupmin(qk, data.vecs, qtk, xtk, scale, precision=tier)
         ref = GM.fused_groupmin_reference(qk, data.vecs, qtk, xtk, scale, precision=tier)
         bound, mag = _groupmin_bound(qk, data.vecs, qtk, xtk, scale)
@@ -566,16 +658,26 @@ def _phase_angular(smi):
         diff = (out.double() - ref.double()).abs()[:, :real]
         rel = float((diff / mag[:, :real]).max())
         lim = float((diff / (2 * bound[:, :real])).max()) if tier == "float32" else rel / 1e-5
+        eps_msg = ""
+        if tier == "float32":
+            f32 = out
+        else:
+            eps = SS._pass1_eps(qk, data, scale, tier).double()
+            ratio = float(((out.double() - f32.double()).abs()[:, :real].amax(dim=1) / eps).max())
+            _require(ratio <= 1.0, lambda: f"{tier} kernel beyond eps of the f32 kernel at the angular shapes: {ratio}")
+            eps_msg = f"; max over queries of max_g |kernel - f32 kernel| / eps {ratio:.3g}"
         ms = _cuda_ms(lambda: GM.fused_groupmin(qk, data.vecs, qtk, xtk, scale, precision=tier), 10)
         plain_ms = _cuda_ms(lambda: GM.fused_groupmin_reference(qk, data.vecs, qtk, xtk, scale,
                                                                 precision=tier), 3)
+        bms, by = _bound_ms(tier, qk, data.vecs)
         print(f"[kernel] {tier} at the angular shapes Q={qk.shape[0]} N={data.vecs.shape[0]} "
               f"D={data.vecs.shape[1]}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; max |kernel - plain| "
               f"{float(diff.max()):.4g} ({rel:.3g} of the magnitude), {lim:.3g} of the limit "
-              f"({'2x the f32 bound' if tier == 'float32' else '1e-5 of the magnitude'}); {smi}", flush=True)
+              f"({'2x the f32 bound' if tier == 'float32' else '1e-5 of the magnitude'}){eps_msg}; bound "
+              f"{bms:.3f} ms ({by}), {bms / ms:.1%} of it; {smi}", flush=True)
         _require(lim <= 1.0 and bool(torch.isfinite(out).all()),
                  lambda: f"{tier} kernel vs plain at the angular shapes: {lim} of the limit")
-    del out, ref, bound, mag, diff
+    del out, ref, bound, mag, diff, f32
 
     # float64 oracle on the cosines of the normalized rows the index stores
     x_dev = data.vecs[:data.count]
@@ -726,6 +828,9 @@ def main() -> int:
     for name, lib in libs.items():
         print(f"[build] {lib.relative_to(root)} from {GM.SOURCES[name].relative_to(root)} for sm_90a; "
               + " | ".join(_ptxas_summary(GM.build_log.get(name, ""))), flush=True)
+        for ln in GM.build_log.get(name, "").splitlines():
+            if "warning" in ln.lower():  # e.g. C7520: ptxas serialized the wgmma instructions
+                print(f"[build] {name}: {ln.strip()}", flush=True)
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = _phase("build", t0)
 
@@ -797,6 +902,7 @@ def main() -> int:
             _require(rel <= 1e-5, lambda: f"{tier} kernel vs plain at Q={nq}: {rel} of the magnitude")
             _require(ratio <= 1.0, lambda: f"{tier} kernel beyond eps of the f32 kernel at Q={nq}: {ratio}")
     del xs, xts, x8, xt8, slab
+    _edge_sweep(dev, kernel_err)
     t0 = _phase("kernel vs plain", t0)
 
     # ---- 4. main path ----
@@ -846,10 +952,12 @@ def main() -> int:
     bound, _ = _groupmin_bound(qk, data.vecs, qtk, xtk, scale)
     kp = float(((k_out.double() - p_out.double()).abs() / (2 * bound)).max())
     flops = 2.0 * qk.shape[0] * data.vecs.shape[0] * data.vecs.shape[1]
+    bound_ms = {"float32": _bound_ms("float32", qk, data.vecs)}
     print(f"[kernel] main-path shapes Q={qk.shape[0]} N={data.vecs.shape[0]} D={data.vecs.shape[1]}: "
           f"kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms "
           f"({flops / plain_ms / 1e9:.1f} TFLOP/s); |kernel - plain| / (2 * bound) max {kp:.3g}; "
-          f"{smi}", flush=True)
+          f"bound {bound_ms['float32'][0]:.3f} ms ({bound_ms['float32'][1]}), "
+          f"{bound_ms['float32'][0] / ms:.1%} of it; {smi}", flush=True)
     _require(kp <= 1.0, lambda: f"kernel vs plain at the main path's shapes: {kp} of the bound")
     t0 = _phase("main path", t0)
 
@@ -912,9 +1020,11 @@ def main() -> int:
     same8 = torch.equal(GM.fused_groupmin(qk8, sdata.vecs, qtk8, xtk8, -2.0),
                         GM.fused_groupmin_reference(qk8, sdata.vecs, qtk8, xtk8, -2.0))
     ops8 = 2.0 * qk8.shape[0] * sdata.vecs.shape[0] * sdata.vecs.shape[1]
+    bound_ms["int8"] = _bound_ms("int8", qk8, sdata.vecs)
     print(f"[kernel] int8 main-path shapes Q={qk8.shape[0]} N={sdata.vecs.shape[0]} "
           f"D={sdata.vecs.shape[1]}: kernel {ms8:.3f} ms ({ops8 / ms8 / 1e9:.1f} TOP/s), plain "
-          f"{plain_ms8:.3f} ms; bit-equal {same8}; {smi}", flush=True)
+          f"{plain_ms8:.3f} ms; bit-equal {same8}; bound {bound_ms['int8'][0]:.3f} ms "
+          f"({bound_ms['int8'][1]}), {bound_ms['int8'][0] / ms8:.1%} of it; {smi}", flush=True)
     _require(same8, lambda: "int8 kernel differs from its plain version at the main path's shapes")
     # exact integer oracle: f64 products of uint8 values are exact
     q8_dev = torch.from_numpy(qu8).to(dev)
@@ -970,8 +1080,11 @@ def main() -> int:
         tdata = m.data
         xtkt = (tdata.extra["pad"] + tdata.row_term).contiguous()
         qkt, qtkt = qenct["q"], qenct["q_term"].contiguous()
-        mst = _cuda_ms(lambda: GM.fused_groupmin(qkt, tdata.vecs, qtkt, xtkt, scale, precision=tier), 10)
-        ms32 = _cuda_ms(lambda: GM.fused_groupmin(qkt, tdata.vecs, qtkt, xtkt, scale), 10)
+        # f32, reduced, reduced, f32 in turns; the means of each pair
+        f32_run = lambda: GM.fused_groupmin(qkt, tdata.vecs, qtkt, xtkt, scale)  # noqa: E731
+        new_run = lambda: GM.fused_groupmin(qkt, tdata.vecs, qtkt, xtkt, scale, precision=tier)  # noqa: E731
+        t4 = [_cuda_ms(f32_run, 10), _cuda_ms(new_run, 10), _cuda_ms(new_run, 10), _cuda_ms(f32_run, 10)]
+        mst, ms32 = (t4[1] + t4[2]) / 2, (t4[0] + t4[3]) / 2
         plain_mst = _cuda_ms(lambda: GM.fused_groupmin_reference(
             qkt, tdata.vecs, qtkt, xtkt, scale, precision=tier), 3)
         # the same kernel's output at these shapes: against its plain
@@ -985,16 +1098,22 @@ def main() -> int:
         kernel_err[tier] = max(kernel_err[tier], float(diff.max()))
         eps = SS._pass1_eps(qkt, tdata, scale, tier).double()
         ratio = float(((out.double() - f32.double()).abs().amax(dim=1) / eps).max())
+        bound_ms[tier] = _bound_ms(tier, qkt, tdata.vecs)
         print(f"[kernel] {tier} main-path shapes Q={qkt.shape[0]} N={tdata.vecs.shape[0]} "
               f"D={tdata.vecs.shape[1]}: kernel {mst:.3f} ms ({flops / mst / 1e9:.1f} TFLOP/s of the "
               f"f32 product), f32 kernel {ms32:.3f} ms, plain {plain_mst:.3f} ms; max |kernel - plain| "
               f"{float(diff.max()):.4g}, relative to the magnitude {rel:.3g} (limit 1e-5); max over "
-              f"queries of max_g |kernel - f32 kernel| / eps {ratio:.3g}; {smi}", flush=True)
+              f"queries of max_g |kernel - f32 kernel| / eps {ratio:.3g}; bound {bound_ms[tier][0]:.3f} ms "
+              f"({bound_ms[tier][1]}), {bound_ms[tier][0] / mst:.1%} of it; {smi}", flush=True)
+        print(f"[kernel] {tier} against the f32 kernel in turns (f32, {tier}, {tier}, f32): "
+              + ", ".join(f"{t:.3f}" for t in t4) + f" ms; ratio {mst / ms32:.3f} (the mma.sync kernel's "
+              f"{OLD_RATIO[tier][1]}: {OLD_RATIO[tier][0]} / 13.294 ms, NVIDIA H100 80GB HBM3, 700 W)",
+              flush=True)
         _require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
                  lambda: f"{tier} kernel output not finite or not {tuple(ref.shape)} at the main path's shapes")
         _require(rel <= 1e-5, lambda: f"{tier} kernel vs plain at the main path's shapes: {rel} of the magnitude")
         _require(ratio <= 1.0, lambda: f"{tier} kernel beyond eps of the f32 kernel at the main path's shapes: {ratio}")
-        tier_rec[tier] = {"launches": lt[tier], "ms": mst, "plain_ms": plain_mst}
+        tier_rec[tier] = {"launches": lt[tier], "ms": mst, "plain_ms": plain_mst, "f32_ms": ms32}
         del dt, it, d100t, i100t, tdata, qenct, qkt, qtkt, xtkt, out, ref, f32, mag, diff, eps
         torch.cuda.empty_cache()
     t0 = _phase("reduced tiers", t0)
@@ -1028,6 +1147,29 @@ def main() -> int:
     del x_f
     t0 = _phase("forced fallback", t0)
 
+    # ---- 8b. gist-960's width end to end: the reduced tiers in K chunks ----
+    from tpu_knn_torch.eval.datasets import sift_like
+
+    wide = sift_like(20_096 + 256, 960, seed=3)
+    wq = wide[20_096:]
+    widx = Index("l2", Params(dim=960), method="seq_search", device="cuda")
+    widx.add_dense_batch(wide[:20_096])
+    dw, iw = widx.knn_query_batch(wq, K)
+    _check_against_oracle("D=960 f32", iw, dw, torch.from_numpy(wq).to(dev),
+                          torch.from_numpy(wide[:20_096]).to(dev), K)
+    for tier in ("high", "bfloat16"):
+        widx.build_index(Params(pass1Precision=tier))
+        GM.reset_launches()
+        dwt, iwt = widx.knn_query_batch(wq, K)
+        lw = dict(GM.launches)
+        print(f"[wide] {tier} D=960: route {widx.method.last_route}, certified "
+              f"{widx.method.last_certified:.6f}, launches {lw}", flush=True)
+        _require(widx.method.last_route == "twopass" and lw[tier] > 0,
+                 lambda: f"D=960 {tier}: route {widx.method.last_route}, launches {lw}")
+        _same_results(f"D=960 {tier} k={K}", dwt, iwt, dw, iw)
+    del widx, wide
+    t0 = _phase("gist-960 width", t0)
+
     # ---- 11 and 12. the scalar-product spaces at the glove-100-angular shape,
     # the gold standard and the metrics ----
     del idx
@@ -1039,22 +1181,24 @@ def main() -> int:
     _phase_precision(corpus, queries, smi)
     t0 = _phase("precision", t0)
 
-    src_mma = "tpu_knn_torch/csrc/groupmin_mma.cu"
+    src_wgmma = "tpu_knn_torch/csrc/groupmin_wgmma.cu"
+    rows = [
+        ("groupmin_f32", "float32", "tpu_knn_torch/csrc/groupmin.cu", "tpu_knn/ops/pallas_scan.py:182",
+         launches, max_abs_err, ms, plain_ms),
+        ("groupmin_i8", "int8", "tpu_knn_torch/csrc/groupmin_mma.cu", "tpu_knn/ops/pallas_scan.py:111",
+         launches8["int8"], kernel_err["int8"], ms8, plain_ms8),
+        ("groupmin_bf16x3", "high", src_wgmma, "tpu_knn/ops/pallas_scan.py:120", tier_rec["high"]["launches"],
+         kernel_err["high"], tier_rec["high"]["ms"], tier_rec["high"]["plain_ms"]),
+        ("groupmin_bf16", "bfloat16", src_wgmma, "tpu_knn/ops/pallas_scan.py:118",
+         tier_rec["bfloat16"]["launches"], kernel_err["bfloat16"], tier_rec["bfloat16"]["ms"],
+         tier_rec["bfloat16"]["plain_ms"]),
+    ]
+    # no single PyTorch call computes a group min, so no library time
     record = {"kernels": [
-        {"name": "groupmin_f32", "route": "cuda", "source": "tpu_knn_torch/csrc/groupmin.cu",
-         "replaces": "tpu_knn/ops/pallas_scan.py:182", "launches": launches,
-         "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms},
-        {"name": "groupmin_i8", "route": "cuda", "source": src_mma,
-         "replaces": "tpu_knn/ops/pallas_scan.py:111", "launches": launches8["int8"],
-         "max_abs_err": kernel_err["int8"], "ms": ms8, "plain_ms": plain_ms8},
-        {"name": "groupmin_bf16x3", "route": "cuda", "source": src_mma,
-         "replaces": "tpu_knn/ops/pallas_scan.py:120", "launches": tier_rec["high"]["launches"],
-         "max_abs_err": kernel_err["high"], "ms": tier_rec["high"]["ms"],
-         "plain_ms": tier_rec["high"]["plain_ms"]},
-        {"name": "groupmin_bf16", "route": "cuda", "source": src_mma,
-         "replaces": "tpu_knn/ops/pallas_scan.py:118", "launches": tier_rec["bfloat16"]["launches"],
-         "max_abs_err": kernel_err["bfloat16"], "ms": tier_rec["bfloat16"]["ms"],
-         "plain_ms": tier_rec["bfloat16"]["plain_ms"]},
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": n_launch,
+         "max_abs_err": err, "ms": kms, "plain_ms": pms, "bound_ms": bound_ms[tier][0],
+         "bound_by": bound_ms[tier][1], "library_ms": None}
+        for name, tier, src, rep, n_launch, err, kms, pms in rows
     ]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

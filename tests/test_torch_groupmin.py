@@ -14,6 +14,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from tpu_knn.ops.pallas_scan import fused_groupmin as jax_groupmin  # noqa: E402
 from tpu_knn_torch.ops import groupmin as GM  # noqa: E402
+from tpu_knn_torch.tools import groupmin_ablation as ABL  # noqa: E402
 
 
 def _inputs(qn, n, d=128, seed=0):
@@ -150,3 +151,120 @@ def test_groupmin_build_without_nvcc_raises(monkeypatch, tmp_path):
         GM.build()
     assert not (tmp_path / "build").exists()
     assert GM.launches == dict.fromkeys(GM.TIERS, 0)
+
+
+# ---- the wiring of the three kernel libraries, with the library faked ----
+
+
+class _FakeFn:
+    def __init__(self):
+        self.argtypes = None
+        self.restype = None
+
+
+class _FakeLib:
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(name, _FakeFn())
+
+
+def test_groupmin_sources_and_entries():
+    """f32 -> groupmin.cu, int8 -> groupmin_mma.cu, high and bfloat16 ->
+    groupmin_wgmma.cu, which alone takes the query-split scratch."""
+    assert {n: p.name for n, p in GM.SOURCES.items()} == {
+        "groupmin": "groupmin.cu", "groupmin_mma": "groupmin_mma.cu", "groupmin_wgmma": "groupmin_wgmma.cu"}
+    assert all(p.exists() for p in GM.SOURCES.values())
+    assert GM._ENTRY == {
+        "float32": ("groupmin", "tk_groupmin_f32", 8),
+        "int8": ("groupmin_mma", "tk_groupmin_i8", 16),
+        "high": ("groupmin_wgmma", "tk_groupmin_bf16x3", 8),
+        "bfloat16": ("groupmin_wgmma", "tk_groupmin_bf16", 8),
+    }
+    assert GM._WITH_SCRATCH == ("groupmin_wgmma",)
+
+
+@pytest.mark.parametrize("name", ["groupmin", "groupmin_mma", "groupmin_wgmma"])
+def test_groupmin_load_sets_argtypes(monkeypatch, tmp_path, name):
+    """Every pointer is a c_void_p (ctypes would cut it to 32 bits as an
+    int), counts are 64-bit; the wgmma entries also take (scratch, bytes)."""
+    import ctypes
+
+    fake = _FakeLib()
+    monkeypatch.setattr(GM, "_libs", {})
+    monkeypatch.setattr(GM, "build", lambda n: tmp_path / f"{n}.so")
+    monkeypatch.setattr(GM.ctypes, "CDLL", lambda path: fake)
+    assert GM._load(name) is fake and GM._libs == {name: fake}
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    base = [p, p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_float]
+    want = base + ([p, i64] if name == "groupmin_wgmma" else []) + [p]
+    entries = [e for lib, e, _ in GM._ENTRY.values() if lib == name]
+    assert entries and all(fake.fns[e].argtypes == want and fake.fns[e].restype is ctypes.c_int
+                           for e in entries)
+    if name == "groupmin_wgmma":
+        sb = fake.fns["tk_groupmin_wgmma_scratch_bytes"]
+        assert sb.argtypes == [i64, ctypes.c_int, ctypes.c_int] and sb.restype is i64
+    assert fake.fns["tk_error_string"].restype is ctypes.c_char_p
+
+
+@pytest.mark.parametrize("tier", ["high", "bfloat16"])
+@pytest.mark.parametrize("n,d", [(500, 128), (512, 12), (640, 20)])
+def test_groupmin_reduced_tier_contract_raises(tier, n, d):
+    """The wgmma tiers keep the contract: n % 128 == 0 and d % 8 == 0."""
+    q, x, qt, xt = _inputs(16, n, d=d)
+    with pytest.raises(ValueError, match="n%128==0 and d%8==0"):
+        _port(q, x, qt, xt, precision=tier)
+
+
+@pytest.mark.parametrize("name", ["groupmin", "groupmin_mma", "groupmin_wgmma"])
+def test_groupmin_build_all_without_nvcc_raises(monkeypatch, tmp_path, name):
+    """Each library's build fails loudly without nvcc and creates nothing."""
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no_cuda"))
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setattr(GM, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        GM.build_all((name,))
+    assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("precision", ["high", "bfloat16"])
+@pytest.mark.parametrize("qn,n,d", [(7, 384, 24), (13, 256, 136), (1, 128, 128), (5, 128, 960)])
+def test_groupmin_reduced_tiers_edge_shapes_match_pallas_interpret(precision, qn, n, d):
+    """The CPU path of the wgmma tiers at the kernel's edge shapes (a
+    ragged query tile, an odd group count, a partial k-step, gist's D=960,
+    which the kernel runs in K chunks) against the Pallas kernel in
+    interpret mode, queries padded to its 16-row tile; atol 1e-3 as above."""
+    q, x, qt, xt = _inputs(qn, n, d=d, seed=qn + d)
+    pad = -qn % 16
+    qp = np.concatenate([q, np.zeros((pad, d), np.float32)])
+    qtp = np.concatenate([qt, np.zeros(pad, np.float32)])
+    want = np.asarray(jax_groupmin(
+        jnp.asarray(qp), jnp.asarray(x), jnp.asarray(qtp), jnp.asarray(xt),
+        scale=-2.0, tq=16, tc=128, interpret=True, precision=precision,
+    ))[:qn]
+    got = _port(q, x, qt, xt, precision=precision)
+    assert got.shape == (qn, n // 128)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("variant", list(ABL.VARIANTS))
+def test_groupmin_ablation_variants_apply_to_the_kernel(variant):
+    """Every ablation variant's parts are found once in the shipped wgmma
+    source, so the tool still switches off what it says it does."""
+    src = GM.SOURCES["groupmin_wgmma"].read_text()
+    out = ABL.variant_source(src, ABL.VARIANTS[variant])
+    assert (out == src) == (variant == "full")
+    with pytest.raises(RuntimeError, match="not in the kernel source once"):
+        ABL.variant_source(out + out, ABL.VARIANTS["half_mma"])
+
+
+def test_groupmin_kernel_sources_split_by_instruction():
+    """bf16x3 and bf16 run on wgmma in groupmin_wgmma.cu; groupmin_mma.cu
+    keeps the int8 mma.sync tier only."""
+    mma = GM.SOURCES["groupmin_mma"].read_text()
+    wg = GM.SOURCES["groupmin_wgmma"].read_text()
+    assert "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8" in mma and "tk_groupmin_i8" in mma
+    assert "bf16.bf16" not in mma and "__nv_bfloat16" not in mma and "tk_groupmin_bf16" not in mma
+    assert "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16" in wg and "mma.sync.aligned" not in wg
+    assert "tk_groupmin_bf16x3" in wg and "tk_groupmin_bf16(" in wg

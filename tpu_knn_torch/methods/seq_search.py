@@ -77,28 +77,33 @@ def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):
 
 def _acc_slack(tier: str, d: int) -> float:
     """Bound, in units of |q||x|, on the accumulation error of the reduced
-    tier's kernel (csrc/groupmin_mma.cu) against the exact sum of its bf16
-    products.
+    tier's kernel (csrc/groupmin_wgmma.cu) against the exact sum of its
+    bf16 products.
 
     tpu_knn's _pass1_eps takes D*2^-24 here: sequential round-to-nearest
     f32 accumulation of D terms (Higham 2002 eq. 4.2). Hopper's tensor
-    cores do not accumulate that way. Each mma.sync m16n8k16 adds 16 exact
-    products to the running f32 sum after aligning all 17 addends to the
-    largest one and truncating the bits shifted out, then truncates the
-    normalized result (Fasi, Higham, Mikaitis and Pranesh, "Numerical
-    behavior of NVIDIA tensor cores", PeerJ CS 7:e330, 2021). So each
-    instruction loses at most 18 ulps of its largest addend or result,
-    each ulp at most 2^-23 of that magnitude (truncation: no extra
+    cores do not accumulate that way. Each k16 step of a wgmma m64nNk16
+    adds 16 exact products to the running f32 sum of each output after
+    aligning all 17 addends to the largest one and truncating the bits
+    shifted out, then truncates the normalized result (Fasi, Higham,
+    Mikaitis and Pranesh, "Numerical behavior of NVIDIA tensor cores",
+    PeerJ CS 7:e330, 2021, measured for mma; the same model is assumed for
+    wgmma). So each step loses at most 18 ulps of its largest addend or
+    result, each ulp at most 2^-23 of that magnitude (truncation: no extra
     guard bits assumed). Every addend and partial sum is at most the sum
     of the |products|, which Cauchy-Schwarz bounds by |hi_q||hi_x| +
     |hi_q||lo_x| + |lo_q||hi_x| <= (1 + 2^-5)|q||x| since |hi| <= (1 +
-    2^-8)|v| and |lo| <= 2^-8|v|. The kernel adds ``passes`` products per
-    k (3 for bf16x3 into ONE accumulator, 1 for bf16) in ceil(D/16)
-    instructions per pass:
+    2^-8)|v| and |lo| <= 2^-8|v|. The kernel issues, into ONE accumulator
+    per output and in k order, ``passes`` k16 steps per 16 k (hi.hi,
+    hi.lo, lo.hi for bf16x3; hi.hi for bf16), ceil(D/16) per pass; a
+    partial last step reads zeros, which add no error. The slack does not
+    depend on how the steps are grouped into wgmma commit groups:
 
         slack = passes * ceil(D/16) * 18 * 2^-23 * (1 + 2^-5)
 
-    i.e. 3*D*(9/8)*2^-23*(1 + 2^-5) for bf16x3 at D % 16 == 0."""
+    i.e. 3*D*(9/8)*2^-23*(1 + 2^-5) for bf16x3 at D % 16 == 0.
+    tests/test_torch_slack.py holds a numpy emulation of this
+    accumulation, in the kernel's order, within it."""
     return _PASS1_PASSES[tier] * (-(-d // 16)) * 18 * 2.0**-23 * (1 + 2.0**-5)
 
 

@@ -6,17 +6,17 @@ tier's hand-written kernel; on a CPU tensor it runs the plain PyTorch
 version, :func:`fused_groupmin_reference`, which is also what each kernel
 is held against on the card:
 
-  ========== ============================ ==================================
-  tier       kernel                       dot of the plain version
-  ========== ============================ ==================================
-  float32    ``csrc/groupmin.cu`` (FFMA)  IEEE f32 matmul
-  int8       ``csrc/groupmin_mma.cu``     f32 matmul of the int8 values cast
-             (IMMA, exact)                to f32: exact, so bit-equal
-  high       ``csrc/groupmin_mma.cu``     bf16x3: hi.hi + (hi.lo + lo.hi),
-             (bf16 mma.sync, 3 passes)    each an f32 matmul of bf16-rounded
-                                          values cast back to f32
-  bfloat16   ``csrc/groupmin_mma.cu``     hi.hi likewise
-  ========== ============================ ==================================
+  ========== ============================== ==================================
+  tier       kernel                         dot of the plain version
+  ========== ============================== ==================================
+  float32    ``csrc/groupmin.cu`` (FFMA)    IEEE f32 matmul
+  int8       ``csrc/groupmin_mma.cu``       f32 matmul of the int8 values cast
+             (IMMA ``mma.sync``, exact)     to f32: exact, so bit-equal
+  high       ``csrc/groupmin_wgmma.cu``     bf16x3: hi.hi + (hi.lo + lo.hi),
+             (bf16 ``wgmma``, 3 passes)     each an f32 matmul of bf16-rounded
+                                            values cast back to f32
+  bfloat16   ``csrc/groupmin_wgmma.cu``     hi.hi likewise
+  ========== ============================== ==================================
 
 The tier follows the input, as in the TPU kernel: int8 ``q``/``x`` run the
 int8 tier whatever ``precision`` says; f32 inputs run ``precision``.
@@ -49,6 +49,7 @@ _PKG = Path(__file__).resolve().parent.parent
 SOURCES = {
     "groupmin": _PKG / "csrc" / "groupmin.cu",
     "groupmin_mma": _PKG / "csrc" / "groupmin_mma.cu",
+    "groupmin_wgmma": _PKG / "csrc" / "groupmin_wgmma.cu",
 }
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -59,9 +60,12 @@ NVCC_FLAGS = (
 _ENTRY = {
     "float32": ("groupmin", "tk_groupmin_f32", 8),
     "int8": ("groupmin_mma", "tk_groupmin_i8", 16),
-    "high": ("groupmin_mma", "tk_groupmin_bf16x3", 8),
-    "bfloat16": ("groupmin_mma", "tk_groupmin_bf16", 8),
+    "high": ("groupmin_wgmma", "tk_groupmin_bf16x3", 8),
+    "bfloat16": ("groupmin_wgmma", "tk_groupmin_bf16", 8),
 }
+#: libraries whose entries also take a scratch for the split queries
+#: (pointer, bytes), sized by the library's tk_groupmin_wgmma_scratch_bytes
+_WITH_SCRATCH = ("groupmin_wgmma",)
 
 #: kernel launches made by :func:`fused_groupmin`, per tier (CUDA tensors only)
 launches = dict.fromkeys(TIERS, 0)
@@ -134,14 +138,16 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
-        p = ctypes.c_void_p
-        for tier, (lname, entry, _) in _ENTRY.items():
+        p, i64 = ctypes.c_void_p, ctypes.c_longlong
+        args = [p, p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_float]
+        if name in _WITH_SCRATCH:
+            args += [p, i64]
+            lib.tk_groupmin_wgmma_scratch_bytes.argtypes = [i64, ctypes.c_int, ctypes.c_int]
+            lib.tk_groupmin_wgmma_scratch_bytes.restype = i64
+        for lname, entry, _ in _ENTRY.values():
             if lname == name:
                 fn = getattr(lib, entry)
-                fn.argtypes = [
-                    p, p, p, p, p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-                    ctypes.c_float, p,
-                ]
+                fn.argtypes = [*args, p]
                 fn.restype = ctypes.c_int
         lib.tk_error_string.argtypes = [ctypes.c_int]
         lib.tk_error_string.restype = ctypes.c_char_p
@@ -252,10 +258,19 @@ def fused_groupmin(q, x, q_term, x_term, scale: float, precision: str = "float32
     lname, entry, _ = _ENTRY[tier]
     lib = _load(lname)
     with torch.cuda.device(q.device):
+        scratch = ()
+        if lname in _WITH_SCRATCH:
+            nbytes = lib.tk_groupmin_wgmma_scratch_bytes(qn, d, int(tier == "high"))
+            if nbytes < 0:
+                raise RuntimeError(f"groupmin {tier}: no kernel plan fits {q.device} at d={d}")
+            # freed on return: the caching allocator hands the block only to
+            # work queued after this launch on the same stream
+            buf = torch.empty(nbytes, dtype=torch.uint8, device=q.device)
+            scratch = (buf.data_ptr(), nbytes)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, entry)(
             q.data_ptr(), x.data_ptr(), q_term.data_ptr(), x_term.data_ptr(), out.data_ptr(),
-            qn, n, d, float(scale), stream,
+            qn, n, d, float(scale), *scratch, stream,
         )
     if err != 0:
         msg = lib.tk_error_string(err).decode()
