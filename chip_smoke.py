@@ -8,9 +8,11 @@ printed as it ends, each fatal on failure:
 
  1. environment: torch/CUDA versions, the card's name and power limit;
     IEEE f32 matmuls (no TF32) required;
- 2. build: compile csrc/groupmin.cu (f32), csrc/groupmin_mma.cu (int8)
-    and csrc/groupmin_wgmma.cu (bf16x3, bf16) for sm_90a, one nvcc each,
-    side by side; registers and spills of every kernel, the build time;
+ 2. build: compile csrc/groupmin.cu (f32), csrc/groupmin_wgmma_i8.cu
+    (int8) and csrc/groupmin_wgmma.cu (bf16x3, bf16) for sm_90a, one nvcc
+    each, side by side; registers and spills of every kernel and template
+    instance, any ptxas warning or remark on the wgmma pipeline, the build
+    time;
  3. the f32 group-min kernel against its plain PyTorch version computed in
     float64, on 131072 sift_like rows, Q in {2048, 1000 (ragged)}; then,
     on the same rows, the int8 kernel bit-equal to its plain version and
@@ -18,7 +20,11 @@ printed as it ends, each fatal on failure:
     of theirs and within the certificate's eps of the f32 kernel; then the
     same two checks of the bf16x3 and bf16 kernels at the edge shapes
     Q in {1, 7, 256, 1000, 2048}, N in {128, 128*63, 20096},
-    D in {24, 128, 136, 384, 960};
+    D in {24, 128, 136, 384, 960}; and the int8 kernel bit-equal to its
+    plain version at the same Q and N with D in {16, 48, 96, 128, 144,
+    384, 640, 960, 2048} (every layout of its plan, printed per D), at a
+    power-of-two scale and at another, with rows of all -128 and all 127
+    and x_term = 1e30 on trailing rows;
  4. the main path: Index("l2", Params(dim=128), method="seq_search",
     device="cuda") over 1,000,000 sift_like rows (the SIFT-1M shape of
     ann-benchmarks' sift-128-euclidean), 2048 queries at k=10, on the
@@ -31,7 +37,8 @@ printed as it ends, each fatal on failure:
  6. the int8 path: Index("l2sqr_sift", ..., data_type="dense_uint8_vector",
     dist_type="int", device="cuda") over the uint8 rounding of the same
     1M rows (SIFT's native byte format), 2048 queries at k=10, against an
-    exact integer oracle, with times, a breakdown and kernel vs plain;
+    exact integer oracle, with times, a breakdown, kernel vs plain and
+    the kernel in turns with the f32 kernel (f32, int8, int8, f32);
  7. the reduced tiers: the 1M x 128 f32 index built with pass1Precision
     "high" and then "bfloat16", k=10 and k=100, bit-identical to the f32
     tier, with the certified fraction, the redone blocks and times; each
@@ -141,7 +148,7 @@ def _ptxas_summary(log: str) -> list[str]:
     template arguments in angle brackets."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
-        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel|split_queries_kernel)(I\w*)?", ln)
+        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel|split_queries_kernel|image_queries_kernel)(I\w*)?", ln)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             name, spill = m.group(1) + (f"<{','.join(args)}>" if args else ""), ""
@@ -149,6 +156,16 @@ def _ptxas_summary(log: str) -> list[str]:
             spill = ln.strip()
         elif "registers" in ln and name:
             out.append(f"{name}: {ln.split(':', 1)[1].strip()}; {spill}")
+    return out
+
+
+def _ptxas_remarks(log: str) -> dict:
+    """{"C75xx <template arguments>": count} of ptxas's remarks on the wgmma
+    pipeline in nvcc's -Xptxas=-v output."""
+    out: dict = {}
+    for m in re.finditer(r"\((C75\d+)\).*?_kernel(I\w*?)EvNS", log):
+        key = f"{m.group(1)} <{','.join(re.findall(r'L[ib](\d+)E', m.group(2) + 'E'))}>"
+        out[key] = out.get(key, 0) + 1
     return out
 
 
@@ -223,6 +240,78 @@ def _edge_sweep(dev, kernel_err):
         print(f"[kernel] {tier} edge sweep, {shapes} shapes (Q in 1, 7, 256, 1000, 2048; N in 128, 8064, "
               f"20096; D in 24, 128, 136, 384, 960): max |kernel - plain| relative to the magnitude {rel:.3g} (limit "
               f"1e-5); max over queries of max_g |kernel - f32 kernel| / eps {ratio:.3g} (limit 1)", flush=True)
+
+
+def _edge_sweep_i8(dev, kernel_err):
+    """The int8 kernel at the edge shapes of its design, bit-equal
+    (torch.equal) to its plain version: Q in {1, 7, 256, 1000, 2048} (one
+    partial 64-query tile up to 32 full ones), N in {128, 128*63, 20096}
+    (one group; group counts that leave a four-group corpus tile partly
+    empty), D in {16, 48, 96, 128, 144, 384, 640, 960, 2048} (one to four
+    k-steps in the last slab; one to sixteen 128-k slabs, which take every
+    layout of the kernel's plan, printed per D: two consumer warpgroups of
+    two groups each with two corpus buffers and with one, of one group
+    each, one warpgroup, and K chunks at 2048). Uniform random int8 values, with rows of all -128 and
+    all 127 in the queries and in the first and last groups (the largest
+    |dot|, D * 2^14; at D = 2048 all values are halved, so that the plain
+    version's f32 sums stay exact), non-integer row terms, and x_term = 1e30
+    on the 37 trailing rows. Each shape at scale -2 (a power of two: the
+    fused multiply-add epilogue) and -0.3 (multiply, then add)."""
+    import torch
+    from tpu_knn_torch.ops import groupmin as GM
+
+    nmax, qmax = 20096, 2048
+    dims = (16, 48, 96, 128, 144, 384, 640, 960, 2048)
+    rng = np.random.default_rng(5)
+    x_np = rng.integers(-128, 128, size=(nmax, max(dims)), dtype=np.int8)
+    q_np = rng.integers(-128, 128, size=(qmax, max(dims)), dtype=np.int8)
+    for row, v in ((0, -128), (1, 127), (128 * 63 - 50, -128), (nmax - 50, 127)):
+        x_np[row] = v
+    for row, v in ((0, -128), (6, 127), (999, -128), (qmax - 1, 127)):
+        q_np[row] = v
+    xt_all = torch.from_numpy((rng.random(nmax) * 2e6).astype(np.float32)).to(dev)
+    qt_all = torch.from_numpy((rng.random(qmax) * 2e6).astype(np.float32)).to(dev)
+    shapes = runs = 0
+    layouts = set()
+    for d in dims:
+        plans = {scale: GM.int8_plan(d, scale) for scale in (-2.0, -0.3)}
+        p = plans[-2.0]
+        layouts.add((p["warpgroups"], p["groups_each"], p["two_buffers"], p["slabs_resident"] < -(-d // 128)))
+        print(f"[kernel] int8 plan at D={d} ({-(-d // 128)} slabs): {json.dumps(p)}; at scale -0.3 "
+              f"pow2_scale {plans[-0.3]['pow2_scale']}", flush=True)
+        _require(p["pow2_scale"] == 1 and plans[-0.3]["pow2_scale"] == 0,
+                 lambda: f"int8 plan at D={d}: the scales did not pick the two epilogues: {plans}")
+        # the plain version's f32 matmul is exact only while every partial sum
+        # stays within 2^24: past D = 1024 the values are halved (-64 .. 63)
+        shift = 1 if d > 1024 else 0
+        x_all = torch.from_numpy(np.ascontiguousarray(x_np[:, :d] >> shift)).to(dev)
+        q_all = torch.from_numpy(np.ascontiguousarray(q_np[:, :d] >> shift)).to(dev)
+        for n in (128, 128 * 63, nmax):
+            x = x_all[:n]
+            xt = xt_all[:n].clone()
+            xt[n - 37:] = 1e30
+            for nq in (1, 7, 256, 1000, qmax):
+                q, qt = q_all[:nq], qt_all[:nq].contiguous()
+                for scale in (-2.0, -0.3):
+                    out = GM.fused_groupmin(q, x, qt, xt, scale)
+                    torch.cuda.synchronize()
+                    ref = GM.fused_groupmin_reference(q, x, qt, xt, scale)
+                    _require(out.shape == ref.shape and bool(torch.isfinite(out).all()),
+                             lambda: f"int8 at Q={nq} N={n} D={d}: output not finite or not {tuple(ref.shape)}")
+                    if not torch.equal(out, ref):
+                        bad = (out != ref).nonzero()
+                        i, g = (int(v) for v in bad[0])
+                        raise RuntimeError(
+                            f"int8 kernel differs from its plain version at Q={nq} N={n} D={d} scale {scale}: "
+                            f"{bad.shape[0]} of {out.numel()} entries, first at query {i} group {g}: "
+                            f"{float(out[i, g])!r} against {float(ref[i, g])!r}")
+                    kernel_err["int8"] = max(kernel_err["int8"], float((out - ref).abs().max()))
+                    runs += 1
+                shapes += 1
+    _require(len(layouts) == 5, lambda: f"the int8 sweep took {len(layouts)} layouts of the plan, not 5: {layouts}")
+    print(f"[kernel] int8 edge sweep, {shapes} shapes x 2 scales = {runs} runs (Q in 1, 7, 256, 1000, 2048; "
+          f"N in 128, 8064, 20096; D in {', '.join(map(str, dims))}), {len(layouts)} layouts: every one "
+          f"bit-equal to its plain version", flush=True)
 
 
 def _median_ms(fn, reps: int = 7):
@@ -591,8 +680,8 @@ def _phase_persist(idx, queries, d10, i10):
 
 
 #: (ms, ms over the f32 kernel's 13.294 ms) of each wgmma tier's kernel
-#: before the wgmma design (the mma.sync kernels), at the 1M l2 shapes
-OLD_RATIO = {"high": (6.669, 0.502), "bfloat16": (3.514, 0.264)}
+#: before the wgmma design (the mma.sync kernels), at the 1M shapes
+OLD_RATIO = {"high": (6.669, 0.502), "bfloat16": (3.514, 0.264), "int8": (1.868, 0.141)}
 
 N_ANGULAR = 1_183_514  # glove-100-angular's corpus (ann-benchmarks)
 DIM_ANGULAR = 100
@@ -829,8 +918,14 @@ def main() -> int:
         print(f"[build] {lib.relative_to(root)} from {GM.SOURCES[name].relative_to(root)} for sm_90a; "
               + " | ".join(_ptxas_summary(GM.build_log.get(name, ""))), flush=True)
         for ln in GM.build_log.get(name, "").splitlines():
-            if "warning" in ln.lower():  # e.g. C7520: ptxas serialized the wgmma instructions
+            if "warning" in ln.lower():
                 print(f"[build] {name}: {ln.strip()}", flush=True)
+        # ptxas reports what it does to the wgmma pipeline as "info" remarks:
+        # C7514/C7515, the wgmmas of an instance serialized; C7519, a
+        # warpgroup.arrive put in before a wgmma
+        remarks = _ptxas_remarks(GM.build_log.get(name, ""))
+        if remarks:
+            print(f"[build] {name}: ptxas remarks per instance {json.dumps(remarks)}", flush=True)
     print(f"[build] all kernels in {time.perf_counter() - t0:.2f} s", flush=True)
     t0 = _phase("build", t0)
 
@@ -903,6 +998,7 @@ def main() -> int:
             _require(ratio <= 1.0, lambda: f"{tier} kernel beyond eps of the f32 kernel at Q={nq}: {ratio}")
     del xs, xts, x8, xt8, slab
     _edge_sweep(dev, kernel_err)
+    _edge_sweep_i8(dev, kernel_err)
     t0 = _phase("kernel vs plain", t0)
 
     # ---- 4. main path ----
@@ -1026,6 +1122,14 @@ def main() -> int:
           f"{plain_ms8:.3f} ms; bit-equal {same8}; bound {bound_ms['int8'][0]:.3f} ms "
           f"({bound_ms['int8'][1]}), {bound_ms['int8'][0] / ms8:.1%} of it; {smi}", flush=True)
     _require(same8, lambda: "int8 kernel differs from its plain version at the main path's shapes")
+    # f32, int8, int8, f32 in turns at the two 1M indexes' shapes; the means of each pair
+    f32_run = lambda: GM.fused_groupmin(qk, data.vecs, qtk, xtk, scale)  # noqa: E731
+    i8_run = lambda: GM.fused_groupmin(qk8, sdata.vecs, qtk8, xtk8, -2.0)  # noqa: E731
+    t4 = [_cuda_ms(f32_run, 10), _cuda_ms(i8_run, 10), _cuda_ms(i8_run, 10), _cuda_ms(f32_run, 10)]
+    print("[kernel] int8 against the f32 kernel in turns (f32, int8, int8, f32): "
+          + ", ".join(f"{t:.3f}" for t in t4) + f" ms; ratio {(t4[1] + t4[2]) / (t4[0] + t4[3]):.3f} (the "
+          f"mma.sync kernel's {OLD_RATIO['int8'][1]}: {OLD_RATIO['int8'][0]} / 13.295 ms, NVIDIA H100 80GB "
+          f"HBM3, 700 W); plan {json.dumps(GM.int8_plan(sdata.vecs.shape[1], -2.0))}", flush=True)
     # exact integer oracle: f64 products of uint8 values are exact
     q8_dev = torch.from_numpy(qu8).to(dev)
     x8_dev = torch.from_numpy(cu8).to(dev)
@@ -1185,7 +1289,7 @@ def main() -> int:
     rows = [
         ("groupmin_f32", "float32", "tpu_knn_torch/csrc/groupmin.cu", "tpu_knn/ops/pallas_scan.py:182",
          launches, max_abs_err, ms, plain_ms),
-        ("groupmin_i8", "int8", "tpu_knn_torch/csrc/groupmin_mma.cu", "tpu_knn/ops/pallas_scan.py:111",
+        ("groupmin_i8", "int8", "tpu_knn_torch/csrc/groupmin_wgmma_i8.cu", "tpu_knn/ops/pallas_scan.py:111",
          launches8["int8"], kernel_err["int8"], ms8, plain_ms8),
         ("groupmin_bf16x3", "high", src_wgmma, "tpu_knn/ops/pallas_scan.py:120", tier_rec["high"]["launches"],
          kernel_err["high"], tier_rec["high"]["ms"], tier_rec["high"]["plain_ms"]),

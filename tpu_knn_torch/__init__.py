@@ -5,8 +5,9 @@ distance kinds, the 15-code error set and the registries), with tensors
 on an explicit ``device``. Ported so far: the exact dense kNN scan
 (``Index("l2" or "l2sqr_sift", ..., method="seq_search")``), whose pass 1
 is a CUDA kernel written for sm_90a at each of tpu_knn's precision tiers
-(ops/groupmin.py; csrc/groupmin.cu for f32, csrc/groupmin_mma.cu for
-int8 and csrc/groupmin_wgmma.cu for bf16x3 and bf16 on the tensor cores).
+(ops/groupmin.py; csrc/groupmin.cu for f32, csrc/groupmin_wgmma_i8.cu for
+int8 and csrc/groupmin_wgmma.cu for bf16x3 and bf16, both on the warpgroup
+tensor cores).
 Importing the package imports neither jax nor tpu_knn, initializes no
 CUDA context and builds nothing.
 """

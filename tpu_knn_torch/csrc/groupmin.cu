@@ -1,10 +1,10 @@
 // Pass 1 of the exact two-pass kNN scan: fused f32 distance + 128-row group min.
 //
 // Replaces the float32 tier of tpu_knn/ops/pallas_scan.py:fused_groupmin
-// (kernel body _kernel_t, the shipped "x" layout, :128-135); the int8, high
-// and bfloat16 tiers are in groupmin_mma.cu. It is also the certificate's
-// per-block f32 redo of the reduced tiers. For q f32[Q, D], x f32[N, D], q_term f32[Q] and
-// x_term f32[N] it writes
+// (kernel body _kernel_t, the shipped "x" layout, :128-135); the int8 tier
+// is in groupmin_wgmma_i8.cu, high and bfloat16 in groupmin_wgmma.cu. It is
+// also the certificate's per-block f32 redo of the reduced tiers. For
+// q f32[Q, D], x f32[N, D], q_term f32[Q] and x_term f32[N] it writes
 //
 //     out[i, g] = min_{r in [128 g, 128 g + 128)} (scale * <q_i, x_r> + x_term[r]) + q_term[i]
 //

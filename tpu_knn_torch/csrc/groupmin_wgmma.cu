@@ -74,7 +74,7 @@
 // Summation: each output takes passes * ceil(D/16) wgmma k16 steps into one
 // accumulator, in k order, hi.hi then hi.lo then lo.hi within a step: the
 // same count and order of tensor-core additions as the mma.sync kernel it
-// replaces, so the certificate's accumulation slack (_acc_slack in
+// replaced, so the certificate's accumulation slack (_acc_slack in
 // methods/seq_search.py) is unchanged.
 //
 // Contract (checked by the Python wrapper, tpu_knn_torch/ops/groupmin.py):
@@ -87,6 +87,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_common.cuh"
 
 namespace {
 
@@ -109,75 +111,11 @@ struct Args {
   float scale;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// 1-D bulk copy global -> shared, completing `bytes` on the mbarrier
-__device__ __forceinline__ void bulk_g2s(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-// the consumer warpgroups' own barrier (id 1; the producer never joins)
-__device__ __forceinline__ void consumer_sync(int nthreads) {
-  asm volatile("bar.sync 1, %0;\n" ::"r"(nthreads) : "memory");
-}
-
-// generic-proxy stores to shared memory, made visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous wgmma and its wait
 __device__ __forceinline__ void fence_operand(float (&d)[64]) {
 #pragma unroll
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// shared-memory matrix descriptor: K-major, 128B swizzle, 8-row core
-// matrices 1024 bytes apart (SBO); LBO is unused for swizzled K-major
-// layouts. A k-step of 16 bf16 (32 bytes) inside a 128-byte row advances
-// the start address; every tile base is 1024-byte aligned.
-__device__ __forceinline__ uint64_t sdesc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[128 x 16]^T, bf16 in, f32 accumulate
@@ -218,10 +156,6 @@ __device__ __forceinline__ void split8(float4 a, float4 b, uint4& hi, uint4& lo)
   hi = make_uint4(pack2(h[0], h[1]), pack2(h[2], h[3]), pack2(h[4], h[5]), pack2(h[6], h[7]));
   lo = make_uint4(pack2(l[0], l[1]), pack2(l[2], l[3]), pack2(l[4], l[5]), pack2(l[6], l[7]));
 }
-
-// byte offset of the 16-byte chunk cc (8 k) of row r in a 128B-swizzled
-// K-major tile of 128-byte rows
-__device__ __forceinline__ int swz(int r, int cc) { return r * 128 + ((cc ^ (r & 7)) << 4); }
 
 // The query image: [q_tiles][slabs][PX parts][64 rows][128 bytes], each
 // (tile, slab) one ring stage of PX * 8 KB. Zeros past Q and past D.

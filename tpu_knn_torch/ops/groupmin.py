@@ -10,8 +10,8 @@ is held against on the card:
   tier       kernel                         dot of the plain version
   ========== ============================== ==================================
   float32    ``csrc/groupmin.cu`` (FFMA)    IEEE f32 matmul
-  int8       ``csrc/groupmin_mma.cu``       f32 matmul of the int8 values cast
-             (IMMA ``mma.sync``, exact)     to f32: exact, so bit-equal
+  int8       ``csrc/groupmin_wgmma_i8.cu``  f32 matmul of the int8 values cast
+             (s8 ``wgmma``, exact)          to f32: exact, so bit-equal
   high       ``csrc/groupmin_wgmma.cu``     bf16x3: hi.hi + (hi.lo + lo.hi),
              (bf16 ``wgmma``, 3 passes)     each an f32 matmul of bf16-rounded
                                             values cast back to f32
@@ -22,7 +22,8 @@ The tier follows the input, as in the TPU kernel: int8 ``q``/``x`` run the
 int8 tier whatever ``precision`` says; f32 inputs run ``precision``.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
-interface on first use, keyed by a hash of its source and flags, under
+interface on first use, keyed by a hash of its source, of every file the
+source includes (``csrc/wgmma_common.cuh``) and of the flags, under
 ``tpu_knn_torch/_build/``, and loaded with ``ctypes``. :func:`build_all`
 runs the nvcc processes side by side. Nothing is built or loaded at
 import time.
@@ -33,6 +34,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -48,9 +50,11 @@ _PKG = Path(__file__).resolve().parent.parent
 #: library name -> CUDA source
 SOURCES = {
     "groupmin": _PKG / "csrc" / "groupmin.cu",
-    "groupmin_mma": _PKG / "csrc" / "groupmin_mma.cu",
     "groupmin_wgmma": _PKG / "csrc" / "groupmin_wgmma.cu",
+    "groupmin_wgmma_i8": _PKG / "csrc" / "groupmin_wgmma_i8.cu",
 }
+#: where a source's ``#include "..."`` is looked up after its own directory
+INCLUDE_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -59,13 +63,16 @@ NVCC_FLAGS = (
 #: tier -> (library, C entry point, D multiple the kernel needs)
 _ENTRY = {
     "float32": ("groupmin", "tk_groupmin_f32", 8),
-    "int8": ("groupmin_mma", "tk_groupmin_i8", 16),
+    "int8": ("groupmin_wgmma_i8", "tk_groupmin_i8", 16),
     "high": ("groupmin_wgmma", "tk_groupmin_bf16x3", 8),
     "bfloat16": ("groupmin_wgmma", "tk_groupmin_bf16", 8),
 }
-#: libraries whose entries also take a scratch for the split queries
-#: (pointer, bytes), sized by the library's tk_groupmin_wgmma_scratch_bytes
-_WITH_SCRATCH = ("groupmin_wgmma",)
+#: libraries whose entries also take a scratch for the query image (pointer,
+#: bytes): library -> (the function that sizes it, what it takes after (nq, d))
+_SCRATCH_BYTES = {
+    "groupmin_wgmma": ("tk_groupmin_wgmma_scratch_bytes", (ctypes.c_int,)),  # 1 for bf16x3
+    "groupmin_wgmma_i8": ("tk_groupmin_i8_scratch_bytes", ()),
+}
 
 #: kernel launches made by :func:`fused_groupmin`, per tier (CUDA tensors only)
 launches = dict.fromkeys(TIERS, 0)
@@ -91,10 +98,28 @@ def _nvcc() -> str:
     return found
 
 
+def _with_includes(path: Path, seen: list) -> list:
+    """``path`` and every file it includes with ``#include "..."``, each once,
+    looked up beside the including file and then in :data:`INCLUDE_DIR`."""
+    if path in seen:
+        return seen
+    seen.append(path)
+    for inc in re.findall(r'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', path.read_text(), flags=re.M):
+        found = next((d / inc for d in (path.parent, INCLUDE_DIR) if (d / inc).is_file()), None)
+        if found is None:
+            raise RuntimeError(f"{path}: included file {inc!r} not found")
+        _with_includes(found.resolve(), seen)
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    src = SOURCES[name].read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """The library of a source: keyed by the source, every file it includes
+    and the flags, so an edit to a shared header rebuilds what includes it."""
+    h = hashlib.sha256()
+    for f in _with_includes(SOURCES[name].resolve(), []):
+        h.update(f.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=tuple(SOURCES)) -> dict:
@@ -112,7 +137,7 @@ def build_all(names=tuple(SOURCES)) -> dict:
     for name in todo:
         tmp = BUILD_DIR / f".{libs[name].name}.{os.getpid()}"
         procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])],
+            [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(SOURCES[name])],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ))
     failed = []
@@ -140,10 +165,12 @@ def _load(name: str):
         lib = ctypes.CDLL(str(build(name)))
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
         args = [p, p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_float]
-        if name in _WITH_SCRATCH:
+        if name in _SCRATCH_BYTES:
             args += [p, i64]
-            lib.tk_groupmin_wgmma_scratch_bytes.argtypes = [i64, ctypes.c_int, ctypes.c_int]
-            lib.tk_groupmin_wgmma_scratch_bytes.restype = i64
+            fname, extra = _SCRATCH_BYTES[name]
+            sizer = getattr(lib, fname)
+            sizer.argtypes = [i64, ctypes.c_int, *extra]
+            sizer.restype = i64
         for lname, entry, _ in _ENTRY.values():
             if lname == name:
                 fn = getattr(lib, entry)
@@ -153,6 +180,23 @@ def _load(name: str):
         lib.tk_error_string.restype = ctypes.c_char_p
         _libs[name] = lib
     return lib
+
+
+def int8_plan(d: int, scale: float) -> dict:
+    """The layout the int8 kernel takes at dimension ``d`` and ``scale`` on
+    the current card: consumer warpgroups, 128-row groups of the resident
+    corpus tile each owns, ring stages, slabs resident at once (of
+    ceil(d / 128); fewer means K chunks), two corpus buffers, and the fused
+    multiply-add epilogue of a power-of-two scale."""
+    lib = _load("groupmin_wgmma_i8")
+    out = (ctypes.c_int * 6)()
+    lib.tk_groupmin_i8_plan.argtypes = [ctypes.c_int, ctypes.c_float, ctypes.POINTER(ctypes.c_int)]
+    lib.tk_groupmin_i8_plan.restype = ctypes.c_int
+    err = lib.tk_groupmin_i8_plan(d, float(scale), out)
+    if err != 0:
+        raise RuntimeError(f"groupmin int8: no kernel plan at d={d}: {lib.tk_error_string(err).decode()} ({err})")
+    keys = ("warpgroups", "groups_each", "stages", "slabs_resident", "two_buffers", "pow2_scale")
+    return dict(zip(keys, out))
 
 
 def tier_of(q: torch.Tensor, precision: str) -> str:
@@ -259,8 +303,9 @@ def fused_groupmin(q, x, q_term, x_term, scale: float, precision: str = "float32
     lib = _load(lname)
     with torch.cuda.device(q.device):
         scratch = ()
-        if lname in _WITH_SCRATCH:
-            nbytes = lib.tk_groupmin_wgmma_scratch_bytes(qn, d, int(tier == "high"))
+        if lname in _SCRATCH_BYTES:
+            fname, extra = _SCRATCH_BYTES[lname]
+            nbytes = getattr(lib, fname)(qn, d, *((int(tier == "high"),) if extra else ()))
             if nbytes < 0:
                 raise RuntimeError(f"groupmin {tier}: no kernel plan fits {q.device} at d={d}")
             # freed on return: the caching allocator hands the block only to
