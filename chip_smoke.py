@@ -86,8 +86,12 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     error bound) and "bfloat16" (recall@10 against the f32 gold).
 
 14. a NaN distance: 20,000 x 16 rows with +inf in row 7, k=5, two-pass
-    route on the card: what the f32 kernel (fminf) and its plain version
-    (torch.min) make of inf - inf, and what knn_query_batch returns;
+    route on the card: the f32 kernel's group mins (min.NaN.f32) NaN in
+    the same cells as its plain version's (torch.min), and every query
+    whose norm identity gives inf - inf gets row 7 first from
+    knn_query_batch, as on the CPU; (the kernel edge sweep of phase 3
+    also holds the f32, bf16x3 and bf16 kernels to their plain versions
+    with an inf row, NaN cell for NaN cell);
 15. hnsw, the default method: Index("l2", Params(dim=128), device="cuda")
     with no method= over sift_like(102_048, 128, seed=0) (100,000 corpus
     rows, 2048 queries: bench.py's HNSW cell), build_index(M=16,
@@ -105,13 +109,30 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     batch the reversed results, post=1 keeps check_graph zero; l2sqr_sift
     and angulardist over 20,000 rows (ramped head waves) return a
     self-query first and reach recall@10 >= 0.9 at efSearch=100.
+16. nnd, the default index at SIFT-1M: Index("l2", Params(dim=128),
+    device="cuda") over phase 4's 1,000,000 rows, build_index with
+    bench.py's Params1M (M=16, efConstruction=100, waveSize=1024,
+    replicateNeighbors=1, nbrStoreDtype="int8"; buildAlgo auto routes it
+    to NN-descent) and nndProfile=1 (a device sync and a log line at each
+    phase mark); build seconds, the phase split, the updates of each
+    descent sweep, repaired nodes, peak memory, check_graph all zero and
+    no node unreached from the entry; recall@10 against phase 4's exact
+    ids (held to the float64 oracle) and qps (warm, best of 3) at
+    bench.py's efSearch set 10-14, 20, 50, recall >= 0.95 at 20, every
+    distance within rtol 5e-3 of its float64 value; then 20,000-row cells
+    with buildAlgo="nndescent" below the threshold: the same seed twice
+    (torch.equal on every level), l2sqr_sift on uint8 rows, cosinesimil on
+    clustered rows, nndRevMode="slots", nndStoreDtype="float32" (the
+    wide-row branch at D=128), nndPolishStore=0 and D=960 (the wide-row
+    branch of the int8 store), each with check_graph all zero and
+    recall@10 at efSearch=50 against GoldStandard.
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
 tier's dense peak: 67 TFLOP/s f32, 989 bf16, 1,979 TOP/s int8) and its
-share of it. No kernel lies on HNSW's own path (its loops are torch ops, as
-they are XLA ops in tpu_knn); it reaches the f32 kernel through
-GoldStandard. The last two lines are the kernels' JSON record and
+share of it. No kernel lies on HNSW's own path, waves or NN-descent (their
+loops are torch ops, as they are XLA ops in tpu_knn); it reaches the f32
+kernel through GoldStandard and phase 4's exact ids. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card or any phase fails.
 """
@@ -263,6 +284,42 @@ def _edge_sweep(dev, kernel_err):
         print(f"[kernel] {tier} edge sweep, {shapes} shapes (Q in 1, 7, 256, 1000, 2048; N in 128, 8064, "
               f"20096; D in 24, 128, 136, 384, 960): max |kernel - plain| relative to the magnitude {rel:.3g} (limit "
               f"1e-5); max over queries of max_g |kernel - f32 kernel| / eps {ratio:.3g} (limit 1)", flush=True)
+    # a corpus row that holds +inf: under bf16x3 its split gives lo = inf - inf,
+    # so every query's min over that row's group is NaN; under bf16 and f32 the
+    # queries whose product is +inf give inf - inf there and the others +inf.
+    # Each kernel carries those NaNs as its plain version does
+    inf_shapes, inf_worst = 0, {tier: 0.0 for tier in ("float32", "high", "bfloat16")}
+    for d in (24, 128, 960):
+        for n in (128, nmax):
+            x = torch.from_numpy(np.ascontiguousarray(data[:n, :d])).to(dev)
+            for nq in (7, qmax):
+                q = torch.from_numpy(np.ascontiguousarray(data[nmax:nmax + nq, :d])).to(dev)
+                qt = (q * q).sum(1)
+                _, mag = _groupmin_bound(q, x, qt, (x * x).sum(1), -2.0)
+                xi = x.clone()
+                xi[7, 3] = float("inf")
+                xt = (xi * xi).sum(1)
+                for tier in inf_worst:
+                    out = GM.fused_groupmin(q, xi, qt, xt, -2.0, precision=tier)
+                    torch.cuda.synchronize()
+                    ref = GM.fused_groupmin_reference(q, xi, qt, xt, -2.0, precision=tier)
+                    nan_k, nan_p = torch.isnan(out), torch.isnan(ref)
+                    fin = torch.isfinite(ref)
+                    err = (out.double() - ref.double()).abs()[fin]
+                    rel = float((err / mag.expand_as(out)[fin]).max()) if err.numel() else 0.0
+                    _require(torch.equal(nan_k, nan_p) and bool(nan_p[:, 0].any())
+                             and torch.equal(out[~fin & ~nan_p], ref[~fin & ~nan_p]) and rel <= 1e-5,
+                             lambda: f"{tier} with an inf row at Q={nq} N={n} D={d}: NaN in {int(nan_k.sum())} "
+                                     f"cells of the kernel, {int(nan_p.sum())} of plain, {int((nan_k != nan_p).sum())} "
+                                     f"differ; finite cells {rel} of the magnitude")
+                    inf_worst[tier] = max(inf_worst[tier], rel)
+                    if tier != "float32" and err.numel():
+                        kernel_err[tier] = max(kernel_err[tier], float(err.max()))
+                inf_shapes += 1
+    print(f"[kernel] an inf row (row 7, column 3), {inf_shapes} shapes (Q in 7, 2048; N in 128, 20096; D in 24, "
+          f"128, 960): f32, bf16x3 and bf16 kernels NaN in the same cells as their plain versions, +inf where they "
+          f"are +inf; finite cells within {json.dumps({t: float(f'{v:.3g}') for t, v in inf_worst.items()})} "
+          f"of the magnitude (limit 1e-5)", flush=True)
 
 
 def _edge_sweep_i8(dev, kernel_err):
@@ -910,8 +967,10 @@ def _phase_nan(smi):
     through Index(device="cuda") on the two-pass route. On the CPU both
     packages return that row first with distance NaN for a query whose norm
     identity gives inf - inf (the plain pass 1 carries the NaN into the
-    group's min, and smallest_k ranks NaN first). Prints what the card
-    does; the f32 kernel against its plain version on this input."""
+    group's min, and smallest_k ranks NaN first). The kernels' min carries
+    NaN too (csrc/min_nan.cuh): the f32 kernel's group mins equal its plain
+    version's, with NaN in the same cells, and every such query returns row
+    7 first through Index(device="cuda"), as on the CPU."""
     import torch
     from tpu_knn_torch import Index, Params
     from tpu_knn_torch.ops import groupmin as GM
@@ -935,15 +994,20 @@ def _phase_nan(smi):
     want = q[:, 3] > 0
     kn, pn = torch.isnan(k_out[:, 0]).cpu().numpy(), torch.isnan(p_out[:, 0]).cpu().numpy()
     first_nan = np.isnan(d[:, 0]) & (i[:, 0] == 7)
-    others = ~torch.isnan(p_out) & ~torch.isnan(k_out)
+    others = ~torch.isnan(p_out)
+    _require(torch.equal(torch.isnan(k_out), torch.isnan(p_out)),
+             lambda: f"NaN input: the kernel's mins are NaN in {int(torch.isnan(k_out).sum())} cells, the plain "
+                     f"version's in {int(torch.isnan(p_out).sum())}, {int((torch.isnan(k_out) != torch.isnan(p_out)).sum())} differ")
     _require(torch.equal(k_out[others], p_out[others]) or
              bool(((k_out[others] - p_out[others]).abs() <= 1e-4 * p_out[others].abs()).all()),
              lambda: "NaN input: kernel and plain differ beyond rounding where neither is NaN")
     _require(not np.isnan(d[:, 1:]).any() and (np.isnan(d[:, 0]) == first_nan).all(),
              lambda: "NaN input: a NaN distance that is not row 7 in first place")
+    _require(np.array_equal(first_nan, want) and np.array_equal(pn, want),
+             lambda: f"NaN input: {int(first_nan.sum())} of the {int(want.sum())} NaN queries return row 7 first")
     print(f"[nan] row 7 holds +inf, 20,000 x 16, k=5, two-pass on the card: {int(want.sum())} of 64 queries "
           f"have inf - inf there; group 0's min is NaN for {int(pn.sum())} of them in the plain version "
-          f"(torch.min carries NaN) and for {int(kn.sum())} in the f32 kernel (fminf drops it); "
+          f"(torch.min) and for {int(kn.sum())} in the f32 kernel (min.NaN.f32), NaN in the same cells; "
           f"knn_query_batch returns row 7 first with distance NaN for {int(first_nan.sum())} queries "
           f"(the CPU path and tpu_knn: all {int(want.sum())}); {smi}", flush=True)
     return {"queries": int(want.sum()), "plain_nan": int(pn.sum()), "kernel_nan": int(kn.sum()),
@@ -1201,6 +1265,125 @@ def _phase_hnsw(smi):
                      lambda: "l2sqr_sift: a self distance that is not exactly 0, or a non-integer distance")
         out[name] = dict(build_s=bs, recall=rec)
         del ix
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_nnd(smi, corpus, queries, i10):
+    """The default index at SIFT-1M, built by NN-descent (bench.py's
+    Params1M, buildAlgo auto), and the 20,000-row side cells. Returns the
+    numbers it printed."""
+    import torch
+    from tpu_knn_torch import DataKind, DistKind, Index, Params
+    from tpu_knn_torch.eval import GoldStandard
+    from tpu_knn_torch.eval.datasets import clustered, sift_like
+    from tpu_knn_torch.ops import graph as G
+    from tpu_knn_torch.ops import nndescent as TN
+    from tpu_knn_torch.tools.hnsw_profile import nnd_log_summary
+    from tpu_knn_torch.utils import logging as L
+
+    n, nq, k = corpus.shape[0], queries.shape[0], K
+    zero = {"self_links": 0, "dup_links": 0, "oob_links": 0}
+    lines: list = []
+    L.LOGGER.set_custom(lambda level, msg: lines.append(msg))
+    try:
+        idx = Index("l2", Params(dim=DIM), device="cuda")  # the default method
+        idx.add_dense_batch(corpus)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        G.reset_counters()
+        params1m = dict(M=16, efConstruction=100, waveSize=1024, replicateNeighbors=1, nbrStoreDtype="int8")
+        tb = time.perf_counter()
+        idx.build_index(Params(params1m, nndProfile=1))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+    finally:
+        L.LOGGER.set_stderr()
+    m = idx.method
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    phases, sweeps, repaired = nnd_log_summary(lines)
+    chk = m.check_graph()
+    unreached = int((~TN._reach_from_host(m.graph["level0"].cpu().numpy(), m._entry)[:n]).sum())
+    print(f"[nnd] build {n} x {DIM}, bench.py's Params1M {params1m} (buildAlgo auto -> "
+          f"{m._resolve_build_algo(n)}) with nndProfile=1: {build_s:.2f} s, peak allocated {peak:.3f} GiB, "
+          f"{len(m._upper) + 1} levels, check_graph {chk}, {unreached} nodes unreached from the entry; phase walls "
+          f"(s, a device sync at each) {json.dumps(phases)}; descent updates per sweep {sweeps}; repaired nodes per "
+          f"link {repaired}; beam iterations {G.counters['beam_iters']}, descent steps "
+          f"{G.counters['descent_steps']}; {smi}", flush=True)
+    _require(m._resolve_build_algo(n) == "nndescent" and len(phases) >= 10 and sweeps,
+             lambda: f"the 1M default build did not run NN-descent: phases {phases}")
+    _require(chk == zero and unreached == 0, lambda: f"1M NN-descent graph: check_graph {chk}, unreached {unreached}")
+    _require(m.graph["level0"].device.type == "cuda" and m._qenc_all is None,
+             lambda: "the 1M graph is not on the card, or construction state was kept")
+
+    q_dev = torch.from_numpy(queries).to("cuda")
+    x_dev = torch.from_numpy(corpus).to("cuda")
+    rows = {}
+    for ef in (10, 11, 12, 13, 14, 20, 50):  # bench.py's efSearch set at 1M
+        idx.set_query_time_params(Params(efSearch=ef))
+        d, i = idx.knn_query_batch(queries, k)  # warm; the int8 neighbour store is made at the first
+        G.reset_counters()
+        idx.knn_query_batch(queries, k)
+        counts = dict(G.counters)
+        best = _median_ms(lambda: idx.knn_query_batch(queries, k), reps=3)[1]
+        _require(d.shape == (nq, k) and np.isfinite(d).all() and (np.diff(d, axis=1) >= 0).all(),
+                 lambda: f"1M NN-descent efSearch={ef}: bad result")
+        err = _check_exact_distances(f"1M NN-descent efSearch={ef}", d, i, q_dev, x_dev)
+        rows[ef] = dict(recall=_recall_at(i, i10, k), ms=best, qps=nq / best * 1e3)
+        print(f"[nnd] 1M efSearch={ef}: recall@{k} {rows[ef]['recall']:.4f} (against phase 4's exact ids), best of 3 "
+              f"{best:.2f} ms, {rows[ef]['qps']:.0f} qps; beam iterations {counts['beam_iters']}, descent steps "
+              f"{counts['descent_steps']}; max |d - f64| {err:.3g}; {smi}", flush=True)
+    _require(rows[20]["recall"] >= 0.95, lambda: f"1M NN-descent recall@10 {rows[20]['recall']} at efSearch=20")
+    out = {"build_s": build_s, "peak_gib": peak, "phases": phases, "sweeps": sweeps, "repaired": repaired,
+           "unreached": unreached, "search": rows}
+    del idx, m, x_dev, q_dev
+    torch.cuda.empty_cache()
+
+    # side cells at 20,000 rows, buildAlgo="nndescent" below the threshold
+    n2 = 20_000
+    side = dict(M=16, efConstruction=100, buildAlgo="nndescent")
+    cu8 = np.rint(corpus[:n2]).astype(np.uint8)
+    ang = clustered(n2 + 256, 100, seed=1)
+    wide = sift_like(n2 + 256, 960, seed=3)
+    cells = (  # label, space, index kwargs, space params, corpus, queries, build params, recall floor
+        ("same seed (a)", "l2", {}, None, corpus[:n2], queries[:256], side, 0.9),
+        ("same seed (b)", "l2", {}, None, corpus[:n2], queries[:256], side, 0.9),
+        ("l2sqr_sift uint8", "l2sqr_sift", dict(data_type=DataKind.UINT8, dist_type=DistKind.INT), None, cu8,
+         np.rint(queries[:256]).astype(np.uint8), side, 0.9),
+        ("cosinesimil clustered", "cosinesimil", {}, Params(dim=100), ang[:n2], ang[n2:], side, 0.9),
+        ("nndRevMode=slots", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndRevMode="slots"), 0.85),
+        ("nndStoreDtype=float32", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndStoreDtype="float32"),
+         0.9),
+        ("nndPolishStore=0", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndPolishStore=0), 0.9),
+        ("D=960", "l2", {}, Params(dim=960), wide[:n2], wide[n2:], side, 0.9),
+    )
+    built = {}
+    out["side"] = {}
+    for label, name, kw, sparams, xs, qs, bp, floor in cells:
+        ix = Index(name, sparams if sparams is not None else Params(dim=xs.shape[1]), device="cuda", **kw)
+        (ix.add_uint8_batch if name == "l2sqr_sift" else ix.add_dense_batch)(xs)
+        t0 = time.perf_counter()
+        ix.build_index(Params(bp))
+        torch.cuda.synchronize()
+        bs = time.perf_counter() - t0
+        chk = ix.method.check_graph()
+        _, g_i = GoldStandard(ix.space, ix.store).compute_knn(qs, k)
+        ix.set_query_time_params(Params(efSearch=50))
+        rec = _recall_at(ix.knn_query_batch(qs, k)[1], g_i, k)
+        wide_rows = xs.shape[1] * (1 if bp.get("nndStoreDtype", "int8") == "int8" else 4) >= TN.WIDE_ROW_BYTES
+        print(f"[nnd] {label}, {n2} x {xs.shape[1]} {name}, {bp}: build {bs:.2f} s, check_graph {chk}, recall@{k} at "
+              f"efSearch=50 {rec:.4f} (floor {floor}); wide-row branch {wide_rows}; {smi}", flush=True)
+        _require(chk == zero and rec >= floor, lambda: f"nnd side cell {label}: check_graph {chk}, recall {rec}")
+        out["side"][label] = {"build_s": bs, "recall": rec}
+        if label.startswith("same seed"):
+            built[label] = ix
+        del ix
+    a, b = built["same seed (a)"].method, built["same seed (b)"].method
+    same = torch.equal(a.graph["level0"], b.graph["level0"]) and len(a._upper) > 0 and all(
+        torch.equal(ua, ub) for ua, ub in zip(a._upper, b._upper))
+    print(f"[nnd] same seed, {n2} rows: level 0 and {len(a._upper)} upper levels torch.equal {same}", flush=True)
+    _require(same, lambda: "two NN-descent builds from one seed gave different graphs")
+    del built, a, b
     torch.cuda.empty_cache()
     return out
 
@@ -1613,12 +1796,21 @@ def main() -> int:
     t0 = _phase("nan", t0)
 
     # ---- 15. hnsw, the default method ----
-    del corpus, queries
     hn = _phase_hnsw(smi)
     t0 = _phase("hnsw", t0)
     print("[hnsw] " + json.dumps({"build_s": round(hn["build_s"], 2), "build_peak_gib": round(hn["build_peak_gib"], 3),
                                   "qps_recall": {str(ef): [round(r["qps"]), round(r["recall"], 4)]
                                                  for ef, r in hn["search"].items()}}) + f"; {smi}", flush=True)
+
+    # ---- 16. nnd: the default index at SIFT-1M, built by NN-descent ----
+    nd = _phase_nnd(smi, corpus, queries, i10)
+    del corpus, queries
+    t0 = _phase("nnd", t0)
+    print("[nnd] " + json.dumps({
+        "build_s": nd["build_s"], "build_peak_gib": nd["peak_gib"], "phases": nd["phases"], "sweeps": nd["sweeps"],
+        "repaired": nd["repaired"], "unreached": nd["unreached"],
+        "qps_recall": {str(ef): [r["qps"], r["recall"]] for ef, r in nd["search"].items()},
+        "side": nd["side"]}) + f"; {smi}", flush=True)
 
     src_wgmma = "tpu_knn_torch/csrc/groupmin_wgmma.cu"
     rows = [

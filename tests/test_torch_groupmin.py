@@ -4,6 +4,8 @@ precision tier. On the CPU the wrapper runs its plain PyTorch version;
 the CUDA kernels themselves are held against that version on the card by
 chip_smoke.py."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -312,6 +314,21 @@ def test_groupmin_kernel_sources_split_by_instruction():
     assert "mbarrier.init" in (GM.INCLUDE_DIR / "wgmma_common.cuh").read_text()
 
 
+@pytest.mark.parametrize("name", ["groupmin", "groupmin_wgmma", "groupmin_wgmma_i8"])
+def test_groupmin_epilogue_min_carries_nan(name):
+    """Each kernel's group min is the NaN-carrying min.NaN.f32 of
+    csrc/min_nan.cuh, as the plain version's torch.min: no bare fminf,
+    which drops a NaN, is left in an epilogue."""
+    src = GM.SOURCES[name].read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert '#include "min_nan.cuh"' in code and code.count("min_nan(") >= 2
+    assert "fminf" not in code and "fmin(" not in code
+    hdr = (GM.INCLUDE_DIR / "min_nan.cuh").read_text()
+    assert "min.NaN.f32" in hdr and "__device__ __forceinline__ float min_nan(" in hdr
+    assert GM.SOURCES[name].resolve() in GM._with_includes(GM.SOURCES[name].resolve(), [])
+    assert (GM.INCLUDE_DIR / "min_nan.cuh").resolve() in GM._with_includes(GM.SOURCES[name].resolve(), [])
+
+
 def test_groupmin_library_key_follows_included_headers(monkeypatch, tmp_path):
     """A library is keyed by its source and by every file the source
     includes, directly or through another header: editing a shared header
@@ -338,7 +355,8 @@ def test_groupmin_library_key_follows_included_headers(monkeypatch, tmp_path):
 
 def test_groupmin_shipped_libraries_are_keyed_by_the_shared_header(monkeypatch, tmp_path):
     """The two wgmma sources include csrc/wgmma_common.cuh, the f32 source
-    does not: a changed copy of the header changes exactly their keys."""
+    does not: a changed copy of the header changes exactly their keys. All
+    three include csrc/min_nan.cuh."""
     import shutil
 
     shutil.copytree(GM.INCLUDE_DIR, tmp_path / "csrc")
@@ -349,6 +367,10 @@ def test_groupmin_shipped_libraries_are_keyed_by_the_shared_header(monkeypatch, 
         f.write("// edited\n")
     after = {n: GM._lib_path(n).name for n in GM.SOURCES}
     assert {n for n in before if before[n] != after[n]} == {"groupmin_wgmma", "groupmin_wgmma_i8"}
+    with open(tmp_path / "csrc" / "min_nan.cuh", "a") as f:
+        f.write("// edited\n")
+    last = {n: GM._lib_path(n).name for n in GM.SOURCES}
+    assert all(last[n] != after[n] for n in GM.SOURCES)
 
 
 def _int8_edge_inputs(qn, n, d, seed):

@@ -2,7 +2,7 @@
 tpu_knn built and saved (persist v3) and the reverse, the port's wave
 build against tpu_knn's on the same data and seed, the cases of
 tests/test_hnsw.py and tests/test_determinism.py that need nothing
-unported, and the build algorithms that are refused.
+unported, and the routing between the build algorithms.
 
 Ids must be equal except where two ids are tied in exact (float64)
 distance; distances within rtol 5e-3, atol 1e-5; ``dist_comps`` equal where
@@ -440,19 +440,24 @@ def test_query_batch_order_invariance():
     np.testing.assert_array_equal(fwd, rev[::-1])
 
 
-# ---------------- (e) what is refused ----------------
+# ---------------- (e) build routing and what is refused ----------------
 
 
 def test_nndescent_builds_raise_and_name_waves(corpus):
+    """buildAlgo="nndescent", and "auto" at or above buildAlgoAutoN, build
+    level 0 by NN-descent, as tpu_knn routes them (the builds themselves are
+    held to tpu_knn's in tests/test_torch_hnsw_nnd.py); "auto" below the
+    threshold and "waves" above it build by waves."""
     x, _ = corpus
-    for params in (dict(buildAlgo="nndescent"), dict(buildAlgo="auto", buildAlgoAutoN=100), dict(buildAlgoAutoN=800)):
-        idx = _index(tpu_knn_torch, "l2", x)
-        with pytest.raises(NotImplementedError, match='buildAlgo="waves"'):
-            idx.build_index(Params(params))
-        assert not idx.built
-    # below the threshold auto builds with waves, as tpu_knn does; so does "waves" above it
-    for params in (dict(buildAlgoAutoN=801), dict(buildAlgo="waves", buildAlgoAutoN=100)):
-        idx = _index(tpu_knn_torch, "l2", x[:200], dict(M=4, efConstruction=10, waveSize=64, **params))
+    small = dict(M=4, efConstruction=10, waveSize=64, nndChunk=128, nndIters=2, nndK=8, nndKrev=4)
+    cases = ((dict(buildAlgo="nndescent"), "nndescent"), (dict(buildAlgoAutoN=200), "nndescent"),
+             (dict(buildAlgoAutoN=201), "waves"), (dict(buildAlgo="waves", buildAlgoAutoN=100), "waves"))
+    for params, algo in cases:
+        idx = _index(tpu_knn_torch, "l2", x[:200], dict(small, **params))
+        m = idx.method
+        assert m._resolve_build_algo(200) == algo and m._will_use_nnd(200) == (algo == "nndescent")
+        assert idx.built and m._qenc_all is None
+        assert m.check_graph() == {"self_links": 0, "dup_links": 0, "oob_links": 0}
         assert idx.knn_query(x[3], 1).ids[0] == 3
 
 

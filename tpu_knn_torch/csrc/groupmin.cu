@@ -22,7 +22,7 @@
 // run together and the group comes from HBM once; the query matrix stays in L2.
 // Each of the 256 threads keeps an 8 x 8 register tile of accumulators. The
 // epilogue takes each thread's min over its 8 rows, then a shuffle min across
-// the 16 threads that share a query.
+// the 16 threads that share a query; both mins carry NaN (min_nan.cuh).
 //
 // Contract (checked by the Python wrapper, tpu_knn_torch/ops/groupmin.py):
 // contiguous f32 tensors on one device, 16-byte aligned, N % 128 == 0,
@@ -31,6 +31,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "min_nan.cuh"
 
 namespace {
 
@@ -124,10 +126,10 @@ groupmin_f32_kernel(const float* __restrict__ q, const float* __restrict__ x,
   for (int i = 0; i < 8; ++i) {
     float m = __fadd_rn(__fmul_rn(scale, acc[i][0]), xt[0]);
 #pragma unroll
-    for (int j = 1; j < 8; ++j) m = fminf(m, __fadd_rn(__fmul_rn(scale, acc[i][j]), xt[j]));
+    for (int j = 1; j < 8; ++j) m = min_nan(m, __fadd_rn(__fmul_rn(scale, acc[i][j]), xt[j]));
     // the 16 threads sharing these queries are one half-warp (lanes tx)
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(0xffffffffu, m, off));
+    for (int off = 8; off > 0; off >>= 1) m = min_nan(m, __shfl_xor_sync(0xffffffffu, m, off));
     const int64_t qi = q0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (tx == 0 && qi < nq) out[qi * n_groups + g] = __fadd_rn(m, q_term[qi]);
   }

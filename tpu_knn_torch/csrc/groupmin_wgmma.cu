@@ -59,6 +59,8 @@
 //    column, the min over the thread's 32 columns of each row, two
 //    shfl_xor steps across the quad, + q_term (loaded before the products
 //    are issued, so its latency is hidden), one store per (query, group).
+//    Every min carries NaN (min_nan.cuh): an inf in a row splits into
+//    lo = inf - inf, and the plain version's min carries that NaN.
 //
 // Measured on an H100 SXM at its 700 W power limit, 1M x 128 rows and
 // Q=2048 (tpu_knn_torch/tools/groupmin_ablation.py; PERF.md): the power
@@ -88,6 +90,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "min_nan.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -361,16 +364,16 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) groupmin_wgmma_kernel(const Ar
 #pragma unroll
       for (int j = 0; j < 16; ++j) {
         const float2 v = *reinterpret_cast<const float2*>(xt + 8 * j);
-        m0 = fminf(m0, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 0]), v.x));
-        m0 = fminf(m0, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 1]), v.y));
-        m1 = fminf(m1, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 2]), v.x));
-        m1 = fminf(m1, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 3]), v.y));
+        m0 = min_nan(m0, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 0]), v.x));
+        m0 = min_nan(m0, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 1]), v.y));
+        m1 = min_nan(m1, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 2]), v.x));
+        m1 = min_nan(m1, __fadd_rn(__fmul_rn(a.scale, acc[4 * j + 3]), v.y));
       }
       // the 4 lanes of a quad hold the same two rows
-      m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-      m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-      m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-      m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      m0 = min_nan(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = min_nan(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = min_nan(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = min_nan(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
       const int64_t qi = (int64_t)qt * QT + warp * 16 + g;
       if (live && tq == 0) {
         if (qi < a.nq) a.out[qi * a.n_groups + grp] = __fadd_rn(m0, qv0);

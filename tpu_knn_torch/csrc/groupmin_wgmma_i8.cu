@@ -64,6 +64,8 @@
 //    Integer sums are exact in any order, so any D % 16 == 0 runs.
 //  * Epilogue in registers: float(acc) (exact), scale * . + x_term, four
 //    running mins a thread, two shfl_xor steps across the quad, + q_term,
+//    every min the NaN-carrying one of the other two sources (min_nan.cuh:
+//    an inf row term gives NaN here too; it times equal to fminf),
 //    one store per (query, group). x_term lies in shared memory in the order
 //    a thread reads it, four values a load without bank conflicts; of its
 //    first group a thread keeps its 32 values in registers while the tile is
@@ -82,6 +84,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "min_nan.cuh"
 #include "wgmma_common.cuh"
 
 namespace {
@@ -386,22 +389,22 @@ __global__ void __launch_bounds__(MAX_THREADS, 1) groupmin_i8_kernel(const Args 
       for (int j2 = 0; j2 < 8; ++j2) {
         // x_term of columns j = 2 j2 (x, y) and 2 j2 + 1 (z, w)
         const float4 v = gi < XR ? xr[gi < XR ? gi : 0][j2] : xt[32 * gi + 4 * j2];
-        m0 = fminf(m0, term<POW2>(a.scale, acc[8 * j2 + 0], v.x));
-        n0 = fminf(n0, term<POW2>(a.scale, acc[8 * j2 + 1], v.y));
-        m1 = fminf(m1, term<POW2>(a.scale, acc[8 * j2 + 2], v.x));
-        n1 = fminf(n1, term<POW2>(a.scale, acc[8 * j2 + 3], v.y));
-        m0 = fminf(m0, term<POW2>(a.scale, acc[8 * j2 + 4], v.z));
-        n0 = fminf(n0, term<POW2>(a.scale, acc[8 * j2 + 5], v.w));
-        m1 = fminf(m1, term<POW2>(a.scale, acc[8 * j2 + 6], v.z));
-        n1 = fminf(n1, term<POW2>(a.scale, acc[8 * j2 + 7], v.w));
+        m0 = min_nan(m0, term<POW2>(a.scale, acc[8 * j2 + 0], v.x));
+        n0 = min_nan(n0, term<POW2>(a.scale, acc[8 * j2 + 1], v.y));
+        m1 = min_nan(m1, term<POW2>(a.scale, acc[8 * j2 + 2], v.x));
+        n1 = min_nan(n1, term<POW2>(a.scale, acc[8 * j2 + 3], v.y));
+        m0 = min_nan(m0, term<POW2>(a.scale, acc[8 * j2 + 4], v.z));
+        n0 = min_nan(n0, term<POW2>(a.scale, acc[8 * j2 + 5], v.w));
+        m1 = min_nan(m1, term<POW2>(a.scale, acc[8 * j2 + 6], v.z));
+        n1 = min_nan(n1, term<POW2>(a.scale, acc[8 * j2 + 7], v.w));
       }
-      m0 = fminf(m0, n0);
-      m1 = fminf(m1, n1);
+      m0 = min_nan(m0, n0);
+      m1 = min_nan(m1, n1);
       // the 4 lanes of a quad hold the same two rows
-      m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-      m0 = fminf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-      m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-      m1 = fminf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      m0 = min_nan(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = min_nan(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = min_nan(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = min_nan(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
       if (grp < a.n_groups && tq == 0) {
         if (qi < a.nq) a.out[qi * a.n_groups + grp] = __fadd_rn(m0, qv0);
         if (qi + 8 < a.nq) a.out[(qi + 8) * a.n_groups + grp] = __fadd_rn(m1, qv1);

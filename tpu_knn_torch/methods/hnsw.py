@@ -19,7 +19,9 @@ What tpu_knn redesigned, and the port keeps:
     selection is vectorized, and reverse edges are applied with a
     sort/group/scatter pass instead of per-node mutexes. Within-wave
     connectivity is preserved by merging each point's nearest wave-mates
-    into its candidate set.
+    into its candidate set. From ``buildAlgoAutoN`` rows up (or with
+    ``buildAlgo="nndescent"``) level 0 is built by NN-descent instead and
+    the upper levels by exact per-level k-NN (ops/nndescent.py).
   * Queries run as one batched beam search (ops/graph.py).
 
 The wave step is eager torch ops on the index's device. Every scatter has
@@ -29,11 +31,9 @@ integer ``amax``: the same seed gives the same graph on a GPU too.
 Parameter surface matches tpu_knn's (reference: hnsw.cc:185-218,
 472-507): every parameter it parses is parsed here with the same name,
 default and ValueError, so a header it saved loads. Not ported yet
-(ROADMAP.md): the NN-descent build (``buildAlgo="nndescent"``, and
-``"auto"`` at or above ``buildAlgoAutoN``, raise NotImplementedError
-rather than build a graph tpu_knn would not build) and the sketch proxy
-of the sparse spaces; their parameters are read and kept. Range search
-raises, as in the reference (hnsw.cc:710-715).
+(ROADMAP.md): the sketch proxy of the sparse spaces; its parameters are
+read and kept. Range search raises, as in the reference
+(hnsw.cc:710-715).
 """
 
 from __future__ import annotations
@@ -422,14 +422,13 @@ class Hnsw(Method):
         self.construction_expand = pm.get("constructionExpand", 4, int)
         # Construction algorithm: "waves" = batched insertion waves
         # (reference-faithful incremental semantics), "nndescent" =
-        # whole-corpus NN-descent refinement (not ported yet), "auto" =
+        # whole-corpus NN-descent refinement (ops/nndescent.py), "auto" =
         # NN-descent at or above buildAlgoAutoN rows, waves below.
         self.build_algo = pm.get("buildAlgo", "auto", str)
         if self.build_algo not in ("auto", "waves", "nndescent"):
             raise ValueError(f"bad buildAlgo {self.build_algo!r}")
         self.build_algo_auto_n = pm.get("buildAlgoAutoN", 300_000, int)
-        # NN-descent knobs: read and kept, used by nothing until that build
-        # is ported
+        # NN-descent knobs (ops/nndescent.py)
         self.nnd_k = pm.get("nndK", 48, int)
         self.nnd_krev = pm.get("nndKrev", 16, int)
         self.nnd_t = pm.get("nndT", 8, int)
@@ -529,25 +528,150 @@ class Hnsw(Method):
     wave_profile: dict | None = None
 
     def _resolve_build_algo(self, n: int) -> str:
+        """buildAlgo with "auto" resolved: NN-descent from buildAlgoAutoN
+        rows up (sketch-proxy builds stay on waves in tpu_knn; the port
+        has no proxy)."""
         algo = self.build_algo
         if algo == "auto":
-            algo = "nndescent" if n >= self.build_algo_auto_n else "waves"
+            algo = "nndescent" if n >= self.build_algo_auto_n and self._proxy is None else "waves"
         return algo
 
     def create_index(self, store: DataStore, params: Params | None = None) -> None:
-        if len(store) and self._resolve_build_algo(len(store)) == "nndescent":
-            # no quiet fallback: waves would be a graph tpu_knn does not build here
-            raise NotImplementedError(
-                f"hnsw: the NN-descent build is not ported yet (buildAlgo={self.build_algo!r}, "
-                f"{len(store)} rows, buildAlgoAutoN={self.build_algo_auto_n}); "
-                'pass buildAlgo="waves"'
-            )
         n = self._prepare(store)
         if n == 0:
             return
-        self._run_waves(0, n)
+        algo = self._resolve_build_algo(n)
+        if not (algo == "nndescent" and self._build_nndescent(n)):
+            if algo == "nndescent" and self.build_algo == "nndescent":
+                log("WARNING", "hnsw: buildAlgo=nndescent needs a symmetric affine row encode; falling back to waves")
+            self._run_waves(0, n)
         self._drop_wave_state()
         log("DEBUG", f"{self.name} built: n={n} max_level={self._max_level}")
+
+    # ----- NN-descent construction (ops/nndescent.py) -----
+
+    def _will_use_nnd(self, n: int) -> bool:
+        """The buildAlgo routing of create_index, resolved before encoding
+        so _encode_store can skip the construction encodings an NN-descent
+        build never reads. Methods that keep wave state for post-build
+        maintenance still need them."""
+        if self.KEEP_WAVE_STATE:
+            return False
+        return self._resolve_build_algo(n) == "nndescent" and self._nnd_eligible()
+
+    def _nnd_eligible(self) -> bool:
+        """NN-descent scores both sides from corpus rows: it needs the
+        affine pass-1 form, corpus rows that are their own query encodings
+        and a plain dense row layout."""
+        sp = self._graph_space
+        aff = getattr(sp, "pass1_affine", None)
+        if aff is None or aff() is None:
+            return False
+        raq = getattr(sp, "rows_as_queries", None)
+        if raq is None:
+            return False
+        corpus = _corpus_dict(sp, self._graph_data)
+        vecs = corpus.get("vecs")
+        if getattr(vecs, "ndim", 0) != 2 or "row_mask" in corpus or "term" in corpus:
+            return False
+        return raq(vecs[:1]) is not None
+
+    def _build_nndescent(self, n: int) -> bool:
+        """Level 0 by NN-descent + heuristic prune + reverse links; upper
+        levels by exact per-level k-NN (each level is a prefix of the
+        level-sorted order). Replaces the insertion waves wholesale;
+        ``post`` passes do not apply. Returns False where the space is not
+        eligible."""
+        if not self._nnd_eligible():
+            return False
+        from ..ops import nndescent as ND
+
+        sp = self._graph_space
+        corpus = _corpus_dict(sp, self._graph_data)
+        dev = corpus["vecs"].device
+        # both sides are scored from corpus rows: the encoded-corpus copy of
+        # the waves is dead weight (unless kept for post-build maintenance)
+        if not self.KEEP_WAVE_STATE:
+            self._qenc_all = None
+        selection = "none" if self.delaunay_type == 0 else "heur"
+        prof = bool(self.nnd_profile)
+        _pt = [time.perf_counter()]
+
+        def mark(name):
+            """Drain the device and log the phase's wall (nndProfile=1 only)."""
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            now = time.perf_counter()
+            log("INFO", f"hnsw nnd phase {name}: {now - _pt[0]:.3f}s")
+            _pt[0] = now
+
+        prog = (
+            (lambda it, ch: log("INFO", f"hnsw nnd sweep {it + 1}: {ch} updates"))
+            if (getattr(self, "progress", False) or prof) else None
+        )
+        dist, adj = ND.build_knn_graph(
+            sp, corpus, n,
+            k=self.nnd_k, iters=self.nnd_iters, krev=self.nnd_krev, t_keep=self.nnd_t, chunk=self.nnd_chunk,
+            seed=self.seed, store_dtype=self.nnd_store, n_random=self.nnd_random,
+            progress=prog, mark=mark if prof else None,
+        )
+        n_pad = self.data.ids.shape[0]
+
+        def link():
+            """k-NN lists -> level-0 adjacency (+ reachability repair)."""
+            lv0 = ND.prune_and_link(
+                sp, corpus, dist, adj, n, m=self.M, cap=self.maxM0, chunk=self.nnd_chunk, selection=selection,
+                fill=bool(self.nnd_fill), rev_mode=self.nnd_rev, mark=mark if prof else None,
+            )[:n_pad]
+            # a refinement-built graph has no insertion-time reachability
+            # guarantee: link stranded components back to the entry's
+            lv0, fixed = ND.repair_reachability(sp, corpus, lv0, n, entry=self._entry)
+            if fixed:
+                log("INFO", f"hnsw nnd: repaired reachability of {fixed} nodes")
+            return lv0
+
+        level0 = link()
+        if prof:
+            mark("link0")
+        new_upper = []
+        for lv in range(1, self._max_level + 1):
+            n_l = self._upper[lv - 1].shape[0]
+            new_upper.append(ND.build_level_exact(
+                sp, corpus, n_l, m=self.M, cap=self.maxM, k_cand=min(self.nnd_level_k, max(n_l - 1, 1)),
+                chunk=min(2048, max(n_l, 1)), selection=selection, fill=bool(self.nnd_fill),
+                n_random=self.nnd_random, seed=self.seed, rev_mode=self.nnd_rev,
+            ))
+        self._upper = new_upper
+        if prof and new_upper:
+            mark("uppers")
+        # beam-polish passes: batched re-insertion of every node through the
+        # built graph, whose beam paths restore the mid-range edges the k-NN +
+        # uniform-random candidate pool lacks (ops/nndescent._polish_chunk_math)
+        polish_store = bool(self.nnd_polish_store) and self._cstore_ok()
+
+        def polish_prog(ci, nc, state):
+            # profile mode: a line every 64 chunks, the device drained first
+            if ci % 64 == 63:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                log("INFO", f"hnsw nnd polish chunk {ci + 1}/{nc}")
+
+        for p in range(self.nnd_polish):
+            dist, adj = ND.polish_knn_lists(
+                sp, corpus, level0, self._upper, dist, adj, n, efc=self.ef_construction,
+                expand=self.construction_expand, entry=self._entry,
+                # tpu_knn's chunk: a batched beam runs while any of its queries
+                # is active, so the chunk size shapes the graph
+                chunk=min(2048, self.nnd_chunk * 2),
+                use_store=polish_store, progress=polish_prog if prof else None,
+            )
+            if prof:
+                mark(f"polish{p}")
+            level0 = link()
+            if prof:
+                mark(f"link{p + 1}")
+        self.graph = {"level0": level0}
+        return True
 
     def _drop_wave_state(self) -> None:
         """Free construction-only device state: the corpus-as-queries
@@ -601,11 +725,12 @@ class Hnsw(Method):
             return
         self.data = self._reorder_data(self.data, self.order, n)
         self._graph_data = self.data
-        # a restore with the graph already built never runs waves: skip
-        # encoding a second full corpus copy it would drop
+        # a restore with the graph already built never runs waves, and an
+        # NN-descent build scores both sides from corpus rows: skip encoding
+        # a second full corpus copy they would drop
         self._qenc_all = (
             None
-            if skip_construction
+            if skip_construction or self._will_use_nnd(n)
             else self.space.encode_queries(self.space.store_as_query_points(store)[self.order])
         )
         # row count of the per-node query encodings (unpadded)

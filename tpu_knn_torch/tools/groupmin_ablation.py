@@ -5,7 +5,8 @@ which part of each kernel its time goes to.
 Run from the root of a checkout::
 
     python3 -m tpu_knn_torch.tools.groupmin_ablation [--reps 12] [--only wgmma|int8]
-        [--against OTHER.cu] [--against-i8 OTHER_I8.cu] [--dims 128,256]
+        [--against OTHER.cu] [--against-i8 OTHER_I8.cu] [--against-f32 OTHER_F32.cu]
+        [--dims 128,256] [--only against]
 
 It writes variants of the source into a temporary directory, each with
 some parts switched off, builds them side by side with the port's nvcc
@@ -67,11 +68,13 @@ and variants of the design that keep the result, each held bit-equal
 Then the SM clock under the full int8 kernel, and the kernel at D in 256,
 384, 640, 960 (its other layouts) beside its bound.
 
-With ``--against`` (``--against-i8``), another version of the bf16 (int8)
-source with the same entry points is built beside it and both are timed
-in turns (shipped, other, other, shipped) at each D of ``--dims`` (default
-128, 256, 384, 960; Q=2048, N=1,007,616). Prints the card's name and power
-limit. Needs torch with CUDA and nvcc; imports neither jax nor tpu_knn.
+With ``--against`` (``--against-i8``, ``--against-f32``), another version
+of the bf16 (int8, f32 ``csrc/groupmin.cu``) source with the same entry
+points is built beside it and both are timed in turns (shipped, other,
+other, shipped) at each D of ``--dims`` (default 128, 256, 384, 960;
+Q=2048, N=1,007,616), and their outputs compared (``torch.equal``).
+``--only against`` runs these comparisons and no ablation. Prints the
+card's name and power limit. Needs torch with CUDA and nvcc; imports neither jax nor tpu_knn.
 """
 
 from __future__ import annotations
@@ -124,12 +127,12 @@ PATCHES_I8 = {
     "xreg2": ("constexpr int XREG = 1;", "constexpr int XREG = 2;"),
     "no_mma": ("  for (int kk = 0; kk < N; ++kk)\n", "  for (int kk = 0; kk < 0; ++kk)\n"),
     # 256 FFMAs a thread and unit in four chains, about the epilogue's instruction count
-    "ffma": ("      m0 = fminf(m0, n0);\n",
+    "ffma": ("      m0 = min_nan(m0, n0);\n",
              "      {\n        float d0 = m0, d1 = m1, d2 = n0, d3 = n1;\n#pragma unroll\n"
              "        for (int i = 0; i < 64; ++i) {\n          d0 = fmaf(d0, 1.0001f, 0.5f);\n"
              "          d1 = fmaf(d1, 1.0001f, 0.5f);\n          d2 = fmaf(d2, 1.0001f, 0.5f);\n"
              "          d3 = fmaf(d3, 1.0001f, 0.5f);\n        }\n"
-             "        m0 += (d0 + d1 + d2 + d3) * 1e-30f;\n      }\n      m0 = fminf(m0, n0);\n"),
+             "        m0 += (d0 + d1 + d2 + d3) * 1e-30f;\n      }\n      m0 = min_nan(m0, n0);\n"),
     "no_fma": ("  if (POW2) return __fmaf_rn(", "  if (false) return __fmaf_rn("),
     "cvt_magic": ("float cvt(int s) { return __int2float_rn(s); }",
                   "float cvt(int s) { return __int_as_float(s + 0x4B400000) - 12582912.f; }"),
@@ -232,9 +235,11 @@ def _magnitude(q, x, qt, xt, scale):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--reps", type=int, default=12, help="rounds of turns (default 12)")
-    ap.add_argument("--only", choices=("wgmma", "int8"), help="ablate one of the two sources only")
+    ap.add_argument("--only", choices=("wgmma", "int8", "against"),
+                    help="ablate one of the two sources only, or none (the --against comparisons alone)")
     ap.add_argument("--against", type=Path, help="another groupmin_wgmma.cu to time beside the shipped one")
     ap.add_argument("--against-i8", type=Path, help="another groupmin_wgmma_i8.cu, likewise")
+    ap.add_argument("--against-f32", type=Path, help="another groupmin.cu, likewise")
     ap.add_argument("--dims", default="128,256,384,960", help="widths of the --against comparisons")
     args = ap.parse_args(argv)
     import torch
@@ -253,8 +258,8 @@ def main(argv=None) -> int:
         tmp = Path(tmp_dir)
         GM.BUILD_DIR = tmp
         # variant name -> its library's name in GM.SOURCES, per source
-        variants = {} if args.only == "int8" else {n: f"ablation_{n}" for n in VARIANTS}
-        variants8 = {} if args.only == "wgmma" else {n: f"ablation_i8_{n}" for n in VARIANTS_I8}
+        variants = {} if args.only in ("int8", "against") else {n: f"ablation_{n}" for n in VARIANTS}
+        variants8 = {} if args.only in ("wgmma", "against") else {n: f"ablation_i8_{n}" for n in VARIANTS_I8}
         for name, lname in variants.items():
             (tmp / f"{name}.cu").write_text(variant_source(src, VARIANTS[name]))
             GM.SOURCES[lname] = tmp / f"{name}.cu"
@@ -269,8 +274,12 @@ def main(argv=None) -> int:
             variants8["against"] = "ablation_i8_against"
             variants8.setdefault("full", "groupmin_wgmma_i8")
             GM.SOURCES["ablation_i8_against"] = args.against_i8.resolve()
+        f32_libs = {"f32_full": "groupmin"}
+        if args.against_f32:
+            f32_libs["f32_against"] = "ablation_f32_against"
+            GM.SOURCES["ablation_f32_against"] = args.against_f32.resolve()
         t0 = time.perf_counter()
-        libs = GM.build_all(("groupmin", *variants.values(), *variants8.values()))
+        libs = GM.build_all((*f32_libs.values(), *variants.values(), *variants8.values()))
         print(f"built {len(libs)} libraries in {time.perf_counter() - t0:.1f} s", flush=True)
         for lname in (*variants.values(), *variants8.values()):
             if spills(GM.build_log.get(lname, "")):
@@ -296,21 +305,36 @@ def main(argv=None) -> int:
             sb = lib.tk_groupmin_i8_scratch_bytes
             sb.argtypes, sb.restype = [i64, ctypes.c_int], i64
             entries["i8_" + name, "scratch_bytes"] = lambda nq, d, _x3, sb=sb: sb(nq, d)
-        if args.only != "int8":
+        for name, lname in f32_libs.items():
+            fn = ctypes.CDLL(str(libs[lname])).tk_groupmin_f32
+            fn.argtypes, fn.restype = call_args[:9] + [p], ctypes.c_int
+            entries[name, "float32"] = fn
+        if args.only not in ("int8", "against"):
             _run(entries, args.reps, last, torch, GM)
-        if args.only != "wgmma":
+        if args.only not in ("wgmma", "against"):
             _run_i8(entries, args.reps, last, torch, GM)
         if args.against:
             _against(entries, args.reps, last, torch, args.against, dims, list(ENTRIES), "full", "against", _inputs)
         if args.against_i8:
             _against(entries, args.reps, last, torch, args.against_i8, dims, ["int8"], "i8_full", "i8_against",
                      _inputs_i8)
+        if args.against_f32:
+            _against(entries, args.reps, last, torch, args.against_f32, dims, ["float32"], "f32_full", "f32_against",
+                     _inputs)
     print(_smi("name,power.limit"), flush=True)
     return 0
 
 
 def _caller(entries, torch, name, tier, q, x, qt, xt, out):
-    """One launch of a variant's entry, with its own scratch."""
+    """One launch of a variant's entry, with its own scratch (the f32 entry takes none)."""
+    if tier == "float32":
+        def call_f32():
+            err = entries[name, tier](q.data_ptr(), x.data_ptr(), qt.data_ptr(), xt.data_ptr(), out.data_ptr(),
+                                      q.shape[0], x.shape[0], q.shape[1], -2.0,
+                                      torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name} {tier}: launch failed ({err})")
+        return call_f32
     nbytes = entries[name, "scratch_bytes"](q.shape[0], q.shape[1], int(tier == "high"))
     scratch = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
 
@@ -339,9 +363,13 @@ def _against(entries, reps, last, torch, other, dims, tiers, full, against, inpu
     for d in dims:
         q, x, qt, xt = inputs(2048, 1_007_616, d, seed=d)
         out = torch.empty(q.shape[0], x.shape[0] // 128, device="cuda")
+        out2 = torch.empty_like(out)
         for tier in tiers:
             mine = _caller(entries, torch, full, tier, q, x, qt, xt, out)
-            theirs = _caller(entries, torch, against, tier, q, x, qt, xt, out)
+            theirs = _caller(entries, torch, against, tier, q, x, qt, xt, out2)
+            mine(), theirs()
+            torch.cuda.synchronize()
+            same = torch.equal(out, out2)
             ratios, tm, to = [], [], []
             for _ in range(reps):
                 t = [_cuda_ms(mine, 5), _cuda_ms(theirs, 5), _cuda_ms(theirs, 5), _cuda_ms(mine, 5)]
@@ -351,9 +379,9 @@ def _against(entries, reps, last, torch, other, dims, tiers, full, against, inpu
                 last[0] = time.time()
             print(f"[against] {tier} Q=2048 N=1007616 D={d}: shipped median {statistics.median(tm):.3f} ms, "
                   f"{other.name} {statistics.median(to):.3f} ms; other / shipped: median "
-                  f"{statistics.median(ratios):.3f} (least {min(ratios):.3f}, largest {max(ratios):.3f})",
-                  flush=True)
-        del q, x, qt, xt, out
+                  f"{statistics.median(ratios):.3f} (least {min(ratios):.3f}, largest {max(ratios):.3f}); "
+                  f"outputs equal {same}", flush=True)
+        del q, x, qt, xt, out, out2
 
 
 def _rounds(full, call, reps, n, last):

@@ -15,6 +15,15 @@ name and power limit:
   * with ``--profile-waves``, a second build whose wave step times its
     phases (a sync at every phase edge, so its total exceeds the plain
     build's).
+
+With ``--nnd`` it builds bench.py's SIFT-1M parameters instead (1,000,000
+rows by default, M=16, efConstruction=100, waveSize=1024,
+replicateNeighbors=1, nbrStoreDtype="int8"; buildAlgo "auto" routes to
+NN-descent) with ``nndProfile=1``, and prints the wall of each phase mark
+(init_exact, descent_sweeps, final_exact, then pl_prune, pl_rev, pl_shrink
+and link0 of the first link, uppers, polish0, and the second link's marks
+ending in link1; a device sync at each), the updates of each descent sweep
+and the repaired node count.
 """
 
 from __future__ import annotations
@@ -67,6 +76,16 @@ def beam_parts_ms(vecs, nq: int, ef: int, m0: int = 32, expand: int = 4) -> dict
     }
 
 
+def nnd_log_summary(lines) -> tuple[list, list, list]:
+    """(phase walls [(name, s)], updates per descent sweep, repaired nodes
+    per link) from the log lines of an NN-descent build with nndProfile=1."""
+    phases = [(a, float(b.rstrip("s"))) for a, b in
+              (ln.split("phase ")[1].rsplit(": ", 1) for ln in lines if ln.startswith("hnsw nnd phase "))]
+    sweeps = [int(ln.split(": ")[1].split()[0]) for ln in lines if ln.startswith("hnsw nnd sweep ")]
+    repaired = [int(ln.split(" of ")[1].split()[0]) for ln in lines if "repaired reachability" in ln]
+    return phases, sweeps, repaired
+
+
 def main() -> int:
     import torch
 
@@ -74,12 +93,16 @@ def main() -> int:
     from ..eval.datasets import sift_like
     from ..methods.hnsw import Hnsw
     from ..ops import graph as G
+    from ..utils import logging as L
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--rows", type=int, default=100_000)
-    ap.add_argument("--efc", type=int, default=200)
+    ap.add_argument("--rows", type=int, help="corpus rows (default 100,000; 1,000,000 with --nnd)")
+    ap.add_argument("--efc", type=int, help="efConstruction (default 200; 100 with --nnd)")
     ap.add_argument("--profile-waves", action="store_true")
+    ap.add_argument("--nnd", action="store_true", help="the NN-descent build at SIFT-1M, phase by phase")
     args = ap.parse_args()
+    args.rows = args.rows or (1_000_000 if args.nnd else 100_000)
+    args.efc = args.efc or (100 if args.nnd else 200)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
@@ -88,6 +111,10 @@ def main() -> int:
     xall = sift_like(args.rows + nq, 128, seed=0)
     corpus, queries = xall[: args.rows], xall[args.rows:]
     build = Params(M=16, efConstruction=args.efc, waveSize=1024)
+    if args.nnd:
+        build = Params(M=16, efConstruction=args.efc, waveSize=1024, replicateNeighbors=1, nbrStoreDtype="int8",
+                       nndProfile=1)
+    lines: list = []
 
     def make(profile=None):
         idx = Index("l2", Params(dim=128), device="cuda")
@@ -96,10 +123,12 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         Hnsw.wave_profile = profile  # build_index makes the method: set the hook on the class
+        L.LOGGER.set_custom(lambda level, msg: (lines.append(msg), print(f"[log] {msg}", flush=True)))
         try:
             idx.build_index(build)
         finally:
             Hnsw.wave_profile = None
+            L.LOGGER.set_stderr()
         torch.cuda.synchronize()
         return idx, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
 
@@ -108,6 +137,10 @@ def main() -> int:
     print(f"[build] {args.rows} x 128, {build.as_dict()}: {build_s:.2f} s, peak allocated "
           f"{peak / 2**30:.3f} GiB, check_graph {idx.method.check_graph()}, levels "
           f"{len(idx.method._upper) + 1}, loop counters {json.dumps(G.counters)}; {smi}", flush=True)
+    if args.nnd:
+        phases, sweeps, repaired = nnd_log_summary(lines)
+        print(f"[nnd] phase walls (s, in order, one sync each): {json.dumps(phases)}; descent updates per sweep "
+              f"{sweeps}; repaired nodes per link {repaired}; {smi}", flush=True)
 
     exact = Index("l2", Params(dim=128), method="seq_search", device="cuda")
     exact.add_dense_batch(corpus)
