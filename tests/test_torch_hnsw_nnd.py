@@ -19,7 +19,6 @@ import tpu_knn_torch  # noqa: E402
 from tpu_knn_torch import Index, Params  # noqa: E402
 from tpu_knn_torch.eval.datasets import sift_like  # noqa: E402
 from tpu_knn_torch.ops import nndescent as TN  # noqa: E402
-from tpu_knn_torch.spaces.dense import L2Space  # noqa: E402
 
 N, NQ, K, DIM = 1024, 128, 10, 32
 CPU = {"device": "cpu"}
@@ -166,21 +165,14 @@ def test_auto_threshold_routes_as_tpu_knn(built, data):
     assert above.method._qenc_all is None and at_n.method._qenc_all is None
 
 
-class _NoRowQueries(L2Space):
-    """l2 whose corpus rows are not their own query encodings: not eligible
-    for NN-descent. (The port's wave build needs the affine form that
-    tpu_knn's test space, l1, lacks, and no ported space lacks it.)"""
-
-    def rows_as_queries(self, rows):
-        return None
-
-
 def test_fallback_to_waves_warns(data):
+    """l1 has no affine pass-1 form, so it is not eligible for NN-descent:
+    buildAlgo="nndescent" falls back to the wave build with tpu_knn's
+    WARNING (tests/test_nndescent.py's fallback case)."""
     from tpu_knn_torch.utils import logging as L
 
     corpus, q = data
-    idx = _index(tpu_knn_torch, "l2", corpus)
-    idx.space.__class__ = _NoRowQueries
+    idx = _index(tpu_knn_torch, "l1", corpus)
     lines = []
     L.LOGGER.set_custom(lambda level, msg: lines.append((level, msg)))
     try:

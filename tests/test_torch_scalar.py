@@ -126,7 +126,7 @@ def test_corpus_encoded_by_tpu_knn(space):
         np.asarray(jd.vecs), np.asarray(jd.ids), jd.count, jd.dim, None,
         np.asarray(jd.extra["pad"]), "cpu",
     )
-    tdk, tids, _, _, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, "float32")
+    tdk, tids, _, _, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, 1024, "float32")
     assert_same_knn(space, x, q, (np.asarray(jdk), np.asarray(jids)), (tdk.numpy(), tids.numpy()))
 
 

@@ -111,7 +111,7 @@ def test_twopass_on_corpus_encoded_by_tpu_knn():
         np.asarray(jd.vecs), np.asarray(jd.ids), jd.count, jd.dim,
         np.asarray(jd.row_term), np.asarray(jd.extra["pad"]), "cpu",
     )
-    tdk, tids, _, _, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, "float32")
+    tdk, tids, _, _, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, 1024, "float32")
     _assert_same_knn(x, q, (np.asarray(jdk), np.asarray(jids)), (tdk.numpy(), tids.numpy()))
 
 

@@ -141,7 +141,7 @@ def test_sift_corpus_encoded_by_tpu_knn():
         np.asarray(jd.row_term), np.asarray(jd.extra["pad"]), "cpu",
     )
     assert td.vecs.dtype == torch.int8
-    tdk, tids, _, ok, redone = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 5, "float32", "high")
+    tdk, tids, _, ok, redone = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 5, 1024, "float32", "high")
     assert (ok, redone) == (1.0, 0)  # int8 pass 1 is exact: no certificate
     _assert_same_int_knn(x, q, (np.asarray(jdk), np.asarray(jids)), (tdk.numpy(), tids.numpy()))
 
@@ -179,7 +179,7 @@ def test_dense_data_from_numpy_carries_cert_metadata():
     for key in ("max_sq_norm", "max_lo_norm", "max_blo_err"):
         assert td.extra[key].ndim == 0 and float(td.extra[key]) == float(jd.extra[key])
     ts = tpu_knn_torch.core.registry.create_space("l2", tpu_knn_torch.Params(dim=24), device="cpu")
-    tdk, tids, _, ok, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, "float32", "high")
+    tdk, tids, _, ok, _ = TSS._knn_device_twopass(ts, ts.encode_queries(q), td, 4, 1024, "float32", "high")
     assert 0.0 < float(ok) <= 1.0
     np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(tdk.numpy(), np.asarray(jdk), rtol=5e-3, atol=1e-5)

@@ -2,9 +2,10 @@
 
 The same public surface as tpu_knn (``Index``, ``Params``, the data and
 distance kinds, the 15-code error set and the registries), with tensors
-on an explicit ``device``. Ported so far: the exact dense kNN scan
-(``Index("l2" or "l2sqr_sift", ..., method="seq_search")``), whose pass 1
-is a CUDA kernel written for sm_90a at each of tpu_knn's precision tiers
+on an explicit ``device``. Ported so far: every dense space, the exact
+scan (``method="seq_search"``) and HNSW (the default method). The scan's
+pass 1 over a space with an affine factored form is a CUDA kernel written
+for sm_90a at each of tpu_knn's precision tiers
 (ops/groupmin.py; csrc/groupmin.cu for f32, csrc/groupmin_wgmma_i8.cu for
 int8 and csrc/groupmin_wgmma.cu for bf16x3 and bf16, both on the warpgroup
 tensor cores).

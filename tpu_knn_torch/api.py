@@ -10,9 +10,11 @@ Preserved semantics:
   * validation: l2*/cosine* require dim (lib.zig:351-378);
   * query batches padded to power-of-two buckets, as tpu_knn does.
 
-Ported so far: dense f32 and uint8 data; the ``l2``, ``cosinesimil``
-(alias ``cosine``), ``angulardist``, ``negdotprod`` and ``l2sqr_sift``
-spaces; the exact scan (``seq_search``/``brute_force``) with every
+Ported so far: dense f32 and uint8 data; every dense space of tpu_knn
+(``l2``, ``l1``, ``linf``, ``lp``, ``cosinesimil`` with its alias
+``cosine``, ``angulardist``, ``negdotprod``, the KL, Itakura-Saito,
+Jensen-Shannon, alpha-beta and Renyi divergences, ``l2sqr_sift`` and
+``dummy``); the exact scan (``seq_search``/``brute_force``) with every
 pass-1 precision tier and every ``precision``, and ``hnsw`` (the default
 method) with the wave build; kNN, async kNN and range queries; save/load
 in tpu_knn's format v3 (io/persist.py), so a file either package writes

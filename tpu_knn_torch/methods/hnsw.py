@@ -82,23 +82,31 @@ def _gather_qenc(qenc_all: dict, ids, n_total: int) -> dict:
 def _score_pairs(space, qenc_all, n_total, corpus, ids_a, ids_b):
     """d(a_i, b_j) for per-row candidate sets: ids_a [B, C], ids_b [B, C2]
     -> [B, C, C2]. Uses each candidate's own query encoding against
-    gathered corpus rows. Only the affine-factored branch is ported (one
-    batched product, ops/distance.pair_dot)."""
+    gathered corpus rows, so it is valid for every space (asymmetric
+    divergences included): one batched product (ops/distance.pair_dot)
+    for an affine-factored space, else ``space.block`` per row, vmapped
+    in row blocks (ops/graph.vmap_blocks; tpu_knn's lax.map of 512-row
+    blocks)."""
     rows, pad, extra = G.gather_rows(corpus, ids_b)  # [B, C2, D]
     extra = G.inject_term(space, rows, extra)
     qe = _gather_qenc(qenc_all, ids_a.clamp(0, n_total - 1), n_total)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
-    if aff is None or rows.ndim != 3:
-        raise NotImplementedError(
-            f"hnsw construction: only affine-factored dense spaces are ported; got {space.name!r}"
-        )
-    scale, sq, sx = aff
-    s = scale * pair_dot(qe["q"], rows)
-    if sq != 0.0 and "q_term" in qe:
-        s = s + sq * qe["q_term"][:, :, None]
-    if sx != 0.0 and "x_term" in extra:
-        s = s + sx * extra["x_term"][:, None, :]
-    d = space.pass1_post(s, qe) + pad[:, None, :]
+    if aff is not None and rows.ndim == 3:
+        scale, sq, sx = aff
+        s = scale * pair_dot(qe["q"], rows)
+        if sq != 0.0 and "q_term" in qe:
+            s = s + sq * qe["q_term"][:, :, None]
+        if sx != 0.0 and "x_term" in extra:
+            s = s + sx * extra["x_term"][:, None, :]
+        d = space.pass1_post(s, qe) + pad[:, None, :]
+    else:
+        b = ids_a.shape[0]
+        axes = G.qenc_axes(qe, b, ndim=2)
+
+        def one(qe_row, r, p, ex):
+            return space.block(qe_row, {"x": r, "pad": p, **ex})  # [C, C2]
+
+        d = G.vmap_blocks(one, qe, axes, (rows, pad, extra), ids_a.shape[1] * rows[0].numel())
     return torch.where(ids_a[:, :, None] < 0, INF, d)
 
 

@@ -8,12 +8,13 @@ kNN takes one of two routes (:meth:`SeqSearch._plan_knn`):
   * single pass (:func:`_knn_device`): a chunked matmul scan with a
     streaming top-k, for small corpora;
   * two passes (:func:`_knn_device_twopass`): pass 1 keeps only each
-    128-row group's min of the distance block (the group-min kernel,
-    ops/groupmin.py, at the f32, int8, bf16x3 or bf16 tier), a
-    top-(k+margin) over the [Q, N/128] mins selects groups that provably
-    hold the exact top-k (ops/topk.py GROUP; for the reduced tiers under a
-    certificate with a per-block f32 redo), and pass 2 gathers those
-    groups' rows and re-scores them exactly.
+    128-row group's min of the distance block (for a space with an affine
+    factored form the group-min kernel, ops/groupmin.py, at the f32, int8,
+    bf16x3 or bf16 tier; for any other a chunked ``space.block`` scan,
+    :func:`_pass1_block`), a top-(k+margin) over the [Q, N/128] mins
+    selects groups that provably hold the exact top-k (ops/topk.py GROUP;
+    for the reduced tiers under a certificate with a per-block f32 redo),
+    and pass 2 gathers those groups' rows and re-scores them exactly.
 
 Range search (:meth:`SeqSearch.range`) streams [Q, chunk] blocks of
 ``space.block`` twice: once to count the hits per query, once to keep a
@@ -168,12 +169,7 @@ def _certificate_ok(vals, k: int, eps):
 
 def _kernel_inputs(space, qenc, data):
     """(q, q_term, x_term, scale) of the group-min kernel for an affine space."""
-    aff = space.pass1_affine()
-    if aff is None:
-        raise NotImplementedError(
-            f"two-pass scan of {space.name!r}: only affine-factored spaces are ported (ROADMAP.md)"
-        )
-    scale, sq, sx = aff
+    scale, sq, sx = space.pass1_affine()
     q = qenc["q"]
     qt = qenc.get("q_term")
     if qt is None or sq == 0.0:
@@ -202,6 +198,18 @@ def _pass1(space, qenc, data, tier: str = "float32") -> torch.Tensor:
     ``tier`` (int8 corpora always run the exact int8 tier)."""
     q, qt, xt, scale = _kernel_inputs(space, qenc, data)
     return GM.fused_groupmin(q, data.vecs, qt, xt, scale, precision=tier)
+
+
+def _pass1_block(space, qenc, data, chunk: int, precision: str) -> torch.Tensor:
+    """Group mins f32[Q, N_pad/128] of a space with no affine form: a scan
+    of ``space.block`` at ``precision`` over ``chunk``-row slices, each
+    reduced to its 128-row group mins (tpu_knn's pass1_jnp)."""
+    nq = qenc["q"].shape[0]
+    mins = []
+    for ci in range(data.ids.shape[0] // chunk):
+        d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        mins.append(d.reshape(nq, chunk // T.GROUP, T.GROUP).amin(dim=2))
+    return torch.cat(mins, dim=1)
 
 
 def _pass1_certified(space, qenc, data, k: int, tier: str):
@@ -250,13 +258,17 @@ def _pass2(space, qenc, data, gsel: torch.Tensor, k: int):
     return torch.cat(dks), torch.cat(poss)
 
 
-def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precision: str = "float32"):
+def _knn_device_twopass(space, qenc, data, k: int, chunk: int, precision: str,
+                        pass1_precision: str = "float32"):
     """Two-pass exact scan.
 
-    Pass 1 runs the fused group-min kernel; one top-(k+margin) over the
+    Pass 1 runs the fused group-min kernel for a space with an affine
+    factored form (``space.pass1_affine``), which scans the whole corpus
+    in one launch; any other space takes :func:`_pass1_block` over
+    ``chunk``-row slices at ``precision``. One top-(k+margin) over the
     [Q, N/128] mins selects groups in lax.top_k's order (ascending min,
     ties by lower group), pass 2 re-scores their rows exactly and takes
-    the final top-k. The kernel scans the whole corpus in one launch.
+    the final top-k.
 
     ``pass1_precision`` "high" or "bfloat16" runs pass 1 at a reduced tier
     without losing exactness, under the certificate of
@@ -265,14 +277,17 @@ def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precisi
     tier returns are bit-identical to the f32 tier's. int8 corpora run the
     exact int8 tier whatever the precision.
 
-    ``precision`` (the single-pass scan's matmul tier) plays no part here:
-    pass 1 runs its kernel tier and pass 2 is always f32, as in tpu_knn.
+    ``precision`` (the single-pass scan's matmul tier) is the block scan's
+    tier; the kernel runs its own tier and pass 2 is always f32, as in
+    tpu_knn.
 
     Returns (dists, ids, positions, certified fraction, redone blocks), the
     first four as tpu_knn's."""
     n_groups = data.ids.shape[0] // T.GROUP
+    kernel_ok = space.pass1_affine() is not None
     use_cert = (
-        pass1_precision != "float32"
+        kernel_ok
+        and pass1_precision != "float32"
         and data.vecs.dtype != torch.int8  # int8 pass 1 is already exact
         and _kept_groups(k, n_groups, pass1_precision) + 1 <= n_groups
     )
@@ -280,7 +295,8 @@ def _knn_device_twopass(space, qenc, data, k: int, precision: str, pass1_precisi
     if use_cert:
         gsel, ok, redone = _pass1_certified(space, qenc, data, k, pass1_precision)
     else:
-        gsel = _select_groups(_pass1(space, qenc, data), k)  # [Q, kg] group indices
+        mins = _pass1(space, qenc, data) if kernel_ok else _pass1_block(space, qenc, data, chunk, precision)
+        gsel = _select_groups(mins, k)  # [Q, kg] group indices
     dk, pos = _pass2(space, qenc, data, gsel, k)
     pos = torch.where(torch.isinf(dk), -1, pos)
     return dk, _ids_of(data, pos), pos, ok, redone
@@ -385,7 +401,7 @@ class SeqSearch(Method):
         ok, redone = 1.0, 0
         if use_twopass:
             d, ids, _, ok, redone = _knn_device_twopass(
-                self.space, qenc, self.data, kk, self.precision, self.pass1_precision
+                self.space, qenc, self.data, kk, self._chunk, self.precision, self.pass1_precision
             )
         else:
             d, ids, _ = _knn_device(self.space, qenc, self.data, kk, self._chunk, self.precision)

@@ -6,7 +6,12 @@ Almost every NMSLIB distance factors through a matmul:
 
 with per-space element transforms A/B and per-row terms a/b precomputed
 once at encode time (l2sqr: |q|^2 + |x|^2 - 2 q.x; cosinesimil: 1 - qn.xn
-over pre-normalized rows). Every product here is an IEEE f32 matmul;
+over pre-normalized rows; KL(q||x): sum q log q - q . log x; Itakura-Saito:
+q . (1/x) - sum log q + sum log x - d; Renyi_a: 1/(a-1) log(q^a . x^(1-a));
+alpha-beta: a product of elementwise powers plus row sums). The distances
+that do not factor (L1, Linf, generic Lp, Jensen-Shannon) take the blocked
+elementwise path :func:`elementwise_blocked`, plain torch ops with one
+reduction over D per distance. Every product here is an IEEE f32 matmul;
 int8 operands (l2sqr_sift) are cast to f32 first, which is exact (see
 :func:`int8_dot`). :func:`matmul` takes tpu_knn's precision names:
 
@@ -141,3 +146,108 @@ def angular_blocked(qn, xn, precision="float32"):
 
 def negdot_blocked(q, x, precision="float32"):
     return factored(q, x, scale=-1.0, precision=precision)
+
+
+def kldiv_blocked(q, log_x, q_logq_sum, precision="float32"):
+    """KL(q||x) = sum q log q - q . log x, with ``log_x`` precomputed at
+    encode (reference layout analog: distcomp.h:99-154 precomputed logs)."""
+    return factored(q, log_x, q_term=q_logq_sum, scale=-1.0, precision=precision)
+
+
+def itakura_saito_blocked(q, inv_x, logq_sum, logx_sum, dim, precision="float32"):
+    """IS(q,x) = q.(1/x) - sum log q + sum log x - d."""
+    return factored(
+        q, inv_x, q_term=-logq_sum, x_term=logx_sum, const=-float(dim), precision=precision
+    )
+
+
+def renyi_blocked(q_a, x_1a, alpha, precision="float32"):
+    """Renyi_a(q||x) = 1/(a-1) * log( sum q^a x^(1-a) )."""
+    g = torch.clamp_min(matmul(q_a, x_1a, precision), 1e-30)
+    return torch.log(g) / (alpha - 1.0)
+
+
+def abdiv_blocked(q_a, x_b, q_ab_sum, x_ab_sum, alpha, beta, precision="float32"):
+    """Alpha-beta divergence (Cichocki et al.; reference:
+    src/distcomp_diverg.cc): for a,b != 0, a+b != 0:
+      AB(q,x) = -1/(a*b) sum[ q^a x^b - a/(a+b) q^(a+b) - b/(a+b) x^(a+b) ]
+    The cross term is a matmul of elementwise powers; the rest are row sums.
+    """
+    s = alpha + beta
+    cross = matmul(q_a, x_b, precision)
+    val = cross - (alpha / s) * q_ab_sum[:, None] - (beta / s) * x_ab_sum[None, :]
+    return -val / (alpha * beta)
+
+
+# ---------------- blocked elementwise path ----------------
+
+def block_elems(dev: torch.device) -> int:
+    """Elements one materialized intermediate of the elementwise distances
+    may hold ([Q, chunk, D] here; [rows, queries, candidates, D] in the
+    vmapped scorers of ops/graph.py, where XLA fuses them away): 512 MiB
+    of f32 on a card, where larger blocks mean fewer launches, 4 MiB on
+    the CPU. Every distance is reduced over D on its own, so the blocking
+    changes no result."""
+    return 1 << 27 if dev.type == "cuda" else 1 << 20
+
+
+def elementwise_blocked(
+    fn: Callable[..., torch.Tensor],
+    q: torch.Tensor | tuple,
+    x: torch.Tensor | tuple,
+    reduce: str = "sum",
+    chunk: int = 256,
+) -> torch.Tensor:
+    """dist[i,j] = reduce_d fn(q[i,d], x[j,d]) computed in corpus chunks to
+    bound the [Q, chunk, D] intermediate: L1/Linf/Lp/JS and the other
+    distances that do not factor through a product (reference per-pair
+    loops in distcomp_lp.cc, distcomp_js.cc). ``q`` and ``x`` may be
+    tuples of row-aligned tensors (a row and its precomputed transforms),
+    passed to ``fn`` in that order, queries first. The chunk grows to fill
+    :func:`block_elems`; one reduction over D per distance either way."""
+    qs = q if isinstance(q, tuple) else (q,)
+    xs = x if isinstance(x, tuple) else (x,)
+    nq, d = qs[0].shape
+    n = xs[0].shape[0]
+    if n == 0:
+        return qs[0].new_zeros((nq, 0))
+    chunk = min(max(chunk, block_elems(qs[0].device) // max(nq * d, 1)), n)
+    red = torch.sum if reduce == "sum" else torch.amax
+    qb = [t[:, None, :] for t in qs]
+    outs = [
+        red(fn(*qb, *(t[s:s + chunk][None, :, :] for t in xs)), dim=-1) for s in range(0, n, chunk)
+    ]
+    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def l1_blocked(q, x, chunk: int = 256):
+    return elementwise_blocked(lambda a, b: torch.abs(a - b), q, x, "sum", chunk)
+
+
+def linf_blocked(q, x, chunk: int = 256):
+    return elementwise_blocked(lambda a, b: torch.abs(a - b), q, x, "max", chunk)
+
+
+def lp_blocked(q, x, p: float, chunk: int = 256):
+    d = elementwise_blocked(lambda a, b: torch.abs(a - b) ** p, q, x, "sum", chunk)
+    return d ** (1.0 / p)
+
+
+def _safe_log38(v):
+    return torch.log(torch.clamp_min(v, 1e-38))
+
+
+def js_div_blocked(q, x, chunk: int = 128):
+    """Jensen-Shannon divergence, blocked elementwise (reference:
+    src/distcomp_js.cc). Elementwise: 0.5*[ q log(2q/(q+x)) + x log(2x/(q+x)) ]
+    with 0 log 0 := 0, each a * log(a / m) taken as a * (log a - log m)
+    with both logs clamped at 1e-38, as tpu_knn takes it. log q and log x
+    are taken once per row instead of once per pair: the same values."""
+
+    def fn(a, la, b, lb):
+        lm = _safe_log38(0.5 * (a + b))
+        ta = torch.where(a > 0, a * (la - lm), 0.0)
+        tb = torch.where(b > 0, b * (lb - lm), 0.0)
+        return 0.5 * (ta + tb)
+
+    return elementwise_blocked(fn, (q, _safe_log38(q)), (x, _safe_log38(x)), "sum", chunk)

@@ -38,8 +38,12 @@ Every sort is stable and ties go to the lowest index (``lax.sort``,
 them as equal; no ported space returns -0.0 distances except negdotprod
 on exactly orthogonal rows.
 
-The generic per-query scorer and the sparse scorer come with the spaces
-that need them.
+A space with no affine form (L1, Jensen-Shannon, Renyi, ...) is scored
+per query: ``space.block`` of one query against its own gathered rows,
+vmapped over the batch (:func:`score_gathered`), as tpu_knn's ``jax.vmap``
+does. The batch runs in row blocks whose intermediates hold at most
+ops/distance.block_elems elements; every row is scored alone, so the
+blocks change no result. The sparse scorer comes with the sparse spaces.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from . import topk as T
+from .distance import batched_dot, block_elems
 from .topk import INF
 
 #: Host-side counts of the loops: iterations run and device-to-host syncs
@@ -57,6 +62,35 @@ counters = {"beam_iters": 0, "beam_syncs": 0, "descent_steps": 0, "descent_syncs
 def reset_counters() -> None:
     for key in counters:
         counters[key] = 0
+
+
+def qenc_axes(qenc: dict, batch: int, ndim: int = 1) -> dict:
+    """vmap in_dims of an encoded query dict: 0 for entries batched along
+    their first axis (of at least ``ndim`` dims), None for the rest (0-d
+    constants such as Itakura-Saito's ``_dim``)."""
+    return {k: (0 if v.ndim >= ndim and v.shape[0] == batch else None) for k, v in qenc.items()}
+
+
+def vmap_blocks(one, qenc: dict, axes: dict, batched: tuple, per_row: int) -> torch.Tensor:
+    """``torch.vmap(one)`` over the leading axis of ``batched`` (tensors and
+    dicts of tensors) and of the entries of ``qenc`` that ``axes`` marks 0,
+    in row blocks of at most ``block_elems / per_row`` rows; results
+    concatenated along the batch."""
+    first = batched[0]
+    b = first.shape[0]
+    dims = (axes,) + tuple({k: 0 for k in t} if isinstance(t, dict) else 0 for t in batched)
+    fn = torch.vmap(one, in_dims=dims)
+    step = max(1, block_elems(first.device) // max(per_row, 1))
+
+    def sl(t, b0, b1):
+        return {k: v[b0:b1] for k, v in t.items()} if isinstance(t, dict) else t[b0:b1]
+
+    outs = []
+    for b0 in range(0, b, step):
+        b1 = min(b0 + step, b)
+        qe = {k: (v[b0:b1] if axes[k] == 0 else v) for k, v in qenc.items()}
+        outs.append(fn(qe, *(sl(t, b0, b1) for t in batched)))
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
 def _row_pad(corpus: dict, ids: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
@@ -122,26 +156,36 @@ def inject_term(space, rows, extra_sl: dict) -> dict:
 
 
 def score_gathered(space, qenc: dict, rows, pad, extra_sl: dict) -> torch.Tensor:
-    """Distances of query b to its pre-gathered candidate rows [B,K,D]:
-    one batched f32 matmul (exact for int8 rows, ops/distance.batched_dot)
-    + the exact post-transform, for spaces with an affine factored form
-    (space.pass1_affine)."""
+    """Distances of query b to its pre-gathered candidate rows [B,K,D].
+
+    Spaces with an affine factored form (space.pass1_affine) take one
+    batched f32 matmul (exact for int8 rows, ops/distance.batched_dot) +
+    the exact post-transform. Any other space runs ``space.block`` of each
+    query against its own K rows, vmapped over the batch (never a query
+    against another query's rows)."""
     extra_sl = inject_term(space, rows, extra_sl)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
-    if aff is None or rows.ndim != 3:
-        raise NotImplementedError(
-            f"score_gathered: only affine-factored dense spaces are ported; got {space.name!r}"
-        )
-    from .distance import batched_dot
+    if aff is not None and rows.ndim == 3:
+        scale, sq, sx = aff
+        g = batched_dot(qenc["q"], rows)
+        s = scale * g
+        if sq != 0.0 and "q_term" in qenc:
+            s = s + sq * qenc["q_term"][:, None]
+        if sx != 0.0 and "x_term" in extra_sl:
+            s = s + sx * extra_sl["x_term"]
+        return space.pass1_post(s, qenc) + pad
 
-    scale, sq, sx = aff
-    g = batched_dot(qenc["q"], rows)
-    s = scale * g
-    if sq != 0.0 and "q_term" in qenc:
-        s = s + sq * qenc["q_term"][:, None]
-    if sx != 0.0 and "x_term" in extra_sl:
-        s = s + sx * extra_sl["x_term"]
-    return space.pass1_post(s, qenc) + pad
+    b, kc = rows.shape[0], rows.shape[1]
+    if b == 0:
+        return torch.zeros((0, kc), dtype=torch.float32, device=rows.device)
+    axes = qenc_axes(qenc, b)
+
+    def one(qe, r, p, ex):
+        # restore the (length-1) query axis that vmap strips
+        qe = {k: (v[None] if axes[k] == 0 else v) for k, v in qe.items()}
+        return space.block(qe, {"x": r, "pad": p, **ex})[0]
+
+    return vmap_blocks(one, qenc, axes, (rows, pad, extra_sl), rows[0].numel())
 
 
 def score_rows(space, qenc: dict, corpus: dict, ids: torch.Tensor) -> torch.Tensor:

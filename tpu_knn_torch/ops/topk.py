@@ -85,6 +85,12 @@ def streaming_smallest_k(
     return fd, fi
 
 
+def mask_padding(dists: torch.Tensor, count: int, total: int) -> torch.Tensor:
+    """Set distance columns >= count (corpus padding rows) to +inf."""
+    cols = torch.arange(total, device=dists.device)[None, :]
+    return torch.where(cols < count, dists, INF)
+
+
 #: Row-group width of the two-pass exact top-k. The group-min containment
 #: theorem behind the two-pass scan: if entry e is among the k smallest
 #: overall, fewer than k groups have a min below e's group min (each such

@@ -1,26 +1,37 @@
-"""Dense vector spaces, matmul-factored (counterpart of
+"""Dense vector spaces, matmul-factored where they can be (counterpart of
 tpu_knn/spaces/dense.py).
 
-Ported so far: the shared dense encode/slice machinery, the p=2 branch of
-the Lp family and ``l2`` (reference: space_lp.h:49-67), the
-scalar-product family ``cosinesimil``/``angulardist``/``negdotprod``
-(space_scalar.h, distcomp_scalar.cc), the uint8 SIFT integer-L2^2 space
-``l2sqr_sift`` (space_l2sqr_sift.h, distcomp_l2sqr_sift.cc) and the
-certificate metadata of the reduced pass-1 tiers
-(:func:`ensure_cert_metadata`). Where the
-reference stores precomputed norms inside each Object's byte buffer, the
-whole transformed corpus matrix and its per-row terms are precomputed at
-encode time so every distance block is one matmul (ops/distance.py).
+Every space tpu_knn registers here: the Lp family ``l2``/``l1``/``linf``/
+``lp`` (space_lp.h:49-67, distcomp_lp.cc), the scalar-product family
+``cosinesimil``/``angulardist``/``negdotprod`` (space_scalar.h,
+distcomp_scalar.cc), the Bregman divergences KL / generalized KL /
+Itakura-Saito with their "rq" reversed-argument variants (space_bregman.h,
+distcomp_bregman.cc), Jensen-Shannon divergence and metric (space_js.h,
+distcomp_js.cc), the alpha-beta and Renyi divergences
+(space_ab_diverg.h, space_renyi_diverg.h), the uint8 SIFT integer-L2^2
+space ``l2sqr_sift`` (space_l2sqr_sift.h, distcomp_l2sqr_sift.cc) and
+``dummy`` (space_dummy.h); and the certificate metadata of the reduced
+pass-1 tiers (:func:`ensure_cert_metadata`). Where the reference stores
+precomputed logs/norms inside each Object's byte buffer, the whole
+transformed corpus matrix and its per-row terms are precomputed at encode
+time so every factored distance block is one matmul (ops/distance.py).
+
+The element transforms (``_transform_x``/``_transform_q``) are host
+numpy, as in tpu_knn, so encoded rows are bit-equal to its. The per-row
+terms (``_term_x``/``_term_q``) are taken on the device from the raw rows
+as a tensor: f32 sums in torch's order, not numpy's.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..core.dataset import DataKind, DataStore, DenseDeviceData, DistKind, round_up
 from ..core.errors import InvalidArgumentError
-from ..core.params import Params
+from ..core.params import ParamManager, Params
 from ..core.registry import register_space
 from ..ops import distance as D
 from .base import Space
@@ -159,38 +170,45 @@ class DenseSpace(Space):
 
 class LpSpaceBase(DenseSpace):
     """Lp norms (reference: space_lp.h:49-67, distcomp_lp.cc). p == 2 goes
-    through the matmul norm identity; p in {1, inf} and generic p (the
-    blocked elementwise path) are not ported yet."""
+    through the matmul norm identity; p in {1, inf} and generic p take the
+    blocked elementwise path, which has no affine form: the exact scan's
+    pass 1 is then a block scan and graph scoring goes per query."""
 
     def __init__(self, params: Params | None = None, p: float = 2.0, device="cpu"):
         super().__init__(params, device)
         self.p = float(p)
-        if self.p != 2.0:
-            raise NotImplementedError(f"Lp space with p={p}: only p=2 (l2) is ported")
-        self.term_recompute = True
+        self.term_recompute = self.p == 2.0
 
     def _term_q(self, v):
-        return D.sq_norms(v)
+        return D.sq_norms(v) if self.p == 2.0 else None
 
     def pass1_affine(self):
-        return (-2.0, 1.0, 1.0)
+        return (-2.0, 1.0, 1.0) if self.p == 2.0 else None
 
     def pass1_post(self, s, qenc):
         return torch.sqrt(torch.clamp_min(s, 0.0))
 
     def term_from_rows(self, rows):
-        return torch.sum(rows * rows, dim=-1)
+        return torch.sum(rows * rows, dim=-1) if self.p == 2.0 else None
 
     def rows_as_queries(self, rows):
         # _transform_x == _transform_q == identity for p=2: a corpus row
         # IS its own query encoding (term recomputed from the row)
+        if self.p != 2.0:
+            return None
         return {"q": rows, "q_term": torch.sum(rows * rows, dim=-1)}
 
     def _block_impl(self, qenc, xc, precision):
-        d2 = D.factored(
-            qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision
-        )
-        return torch.sqrt(torch.clamp_min(d2, 0.0))
+        if self.p == 2.0:
+            d2 = D.factored(
+                qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision
+            )
+            return torch.sqrt(torch.clamp_min(d2, 0.0))
+        if self.p == 1.0:
+            return D.l1_blocked(qenc["q"], xc["x"])
+        if math.isinf(self.p):
+            return D.linf_blocked(qenc["q"], xc["x"])
+        return D.lp_blocked(qenc["q"], xc["x"], self.p)
 
 
 @register_space("l2")
@@ -199,6 +217,35 @@ class L2Space(LpSpaceBase):
 
     def __init__(self, params=None, device="cpu"):
         super().__init__(params, p=2.0, device=device)
+
+
+@register_space("l1")
+class L1Space(LpSpaceBase):
+    name = "l1"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, p=1.0, device=device)
+
+
+@register_space("linf")
+class LinfSpace(LpSpaceBase):
+    name = "linf"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, p=math.inf, device=device)
+
+
+@register_space("lp")
+class LpSpace(LpSpaceBase):
+    name = "lp"
+
+    def __init__(self, params=None, device="cpu"):
+        pm = ParamManager(params)
+        p = pm.get("p", 2.0, float)
+        pm.check_unused()
+        if p <= 0:
+            raise InvalidArgumentError("lp requires p > 0")
+        super().__init__(params, p=p, device=device)
 
 
 # ---------------- scalar-product family ----------------
@@ -271,6 +318,286 @@ class NegDotProdSpace(DenseSpace):
 
     def _block_impl(self, qenc, xc, precision):
         return D.negdot_blocked(qenc["q"], xc["x"], precision)
+
+
+# ---------------- Bregman divergences ----------------
+
+
+def _safe_log(v: np.ndarray) -> np.ndarray:
+    return np.log(np.maximum(v, _TINY))
+
+
+def _safe_log_t(v: torch.Tensor) -> torch.Tensor:
+    return torch.log(torch.clamp_min(v, _TINY))
+
+
+class KLDivSpace(DenseSpace):
+    """KL divergence family (reference: space_bregman.h,
+    distcomp_bregman.cc). ``generalized`` adds the (-sum q + sum x) terms
+    of the generalized KL; ``reversed`` ("rq") computes KL(x||q)."""
+
+    def __init__(self, params=None, device="cpu", generalized=False, reversed_=False):
+        super().__init__(params, device)
+        self.generalized = generalized
+        self.reversed = reversed_
+
+    def _transform_x(self, v):
+        return v if self.reversed else _safe_log(v)
+
+    def _transform_q(self, v):
+        return _safe_log(v) if self.reversed else v
+
+    def _xlogx_term(self, v):
+        """sum v log v (generalized: - sum v)."""
+        t = torch.sum(v * _safe_log_t(v), dim=1)
+        return t - torch.sum(v, dim=1) if self.generalized else t
+
+    def _term_x(self, v):
+        if self.reversed:
+            return self._xlogx_term(v)
+        return torch.sum(v, dim=1) if self.generalized else None
+
+    def _term_q(self, v):
+        if self.reversed:
+            return torch.sum(v, dim=1) if self.generalized else None
+        return self._xlogx_term(v)
+
+    def pass1_affine(self):
+        return (-1.0, 1.0, 1.0)
+
+    def _block_impl(self, qenc, xc, precision):
+        d = -D.matmul(qenc["q"], xc["x"], precision)  # q . log x  (or log q . x)
+        if "q_term" in qenc:
+            d = d + qenc["q_term"][:, None]
+        if "x_term" in xc:
+            d = d + xc["x_term"][None, :]
+        return d
+
+
+@register_space("kldivfast")
+class KLDivFast(KLDivSpace):
+    name = "kldivfast"
+
+
+@register_space("kldivfastrq")
+class KLDivFastRQ(KLDivSpace):
+    name = "kldivfastrq"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, device, reversed_=True)
+
+
+@register_space("kldivgenfast")
+class KLDivGenFast(KLDivSpace):
+    name = "kldivgenfast"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, device, generalized=True)
+
+
+@register_space("kldivgenfastrq")
+class KLDivGenFastRQ(KLDivSpace):
+    name = "kldivgenfastrq"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, device, generalized=True, reversed_=True)
+
+
+@register_space("kldivgenslow")
+class KLDivGenSlow(KLDivSpace):
+    name = "kldivgenslow"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, device, generalized=True)
+
+
+class ItakuraSaitoSpace(DenseSpace):
+    """IS(q,x) = q.(1/x) - sum log q + sum log x - d."""
+
+    def __init__(self, params=None, device="cpu", reversed_=False):
+        super().__init__(params, device)
+        self.reversed = reversed_
+
+    def _transform_x(self, v):
+        return v if self.reversed else 1.0 / np.maximum(v, _TINY)
+
+    def _transform_q(self, v):
+        return 1.0 / np.maximum(v, _TINY) if self.reversed else v
+
+    def _term_x(self, v):
+        s = torch.sum(_safe_log_t(v), dim=1)
+        return -s if self.reversed else s
+
+    def _term_q(self, v):
+        s = torch.sum(_safe_log_t(v), dim=1)
+        return s if self.reversed else -s
+
+    def pass1_affine(self):
+        return (1.0, 1.0, 1.0)
+
+    def pass1_post(self, s, qenc):
+        return s - qenc["_dim"]
+
+    def _block_impl(self, qenc, xc, precision):
+        g = D.matmul(qenc["q"], xc["x"], precision)
+        return g + qenc["q_term"][:, None] + xc["x_term"][None, :] - qenc["_dim"]
+
+    def encode_queries(self, points):
+        enc = super().encode_queries(points)
+        d = np.asarray(points)
+        dim = d.shape[-1] if d.ndim > 1 else d.shape[0]
+        enc["_dim"] = torch.tensor(float(dim), dtype=torch.float32, device=self.device)
+        return enc
+
+
+@register_space("itakurasaitofast")
+class ISFast(ItakuraSaitoSpace):
+    name = "itakurasaitofast"
+
+
+@register_space("itakurasaitoslow")
+class ISSlow(ItakuraSaitoSpace):
+    name = "itakurasaitoslow"
+
+
+@register_space("itakurasaitofastrq")
+class ISFastRQ(ItakuraSaitoSpace):
+    name = "itakurasaitofastrq"
+
+    def __init__(self, params=None, device="cpu"):
+        super().__init__(params, device, reversed_=True)
+
+
+# ---------------- Jensen-Shannon ----------------
+
+
+class JSDivSpace(DenseSpace):
+    """JS divergence, blocked elementwise (not matmul-factorable because of
+    log(q+x); reference: distcomp_js.cc)."""
+
+    def _block_impl(self, qenc, xc, precision):
+        return D.js_div_blocked(qenc["q"], xc["x"])
+
+
+@register_space("jsdivslow")  # C++ registry spelling (space_js.h:29)
+@register_space("js_div_slow")  # Zig-whitelist spelling (lib.zig)
+class JSDivSlow(JSDivSpace):
+    name = "js_div_slow"
+
+
+@register_space("jsdivfast")  # C++ registry spelling (space_js.h:30)
+@register_space("js_div_fast")
+class JSDivFast(JSDivSpace):
+    name = "js_div_fast"
+
+
+@register_space("jsdivfastapprox")  # C++ registry spelling (space_js.h:31)
+@register_space("js_div_fast_approx")
+class JSDivFastApprox(JSDivSpace):
+    name = "js_div_fast_approx"
+
+
+class JSMetricSpace(JSDivSpace):
+    """JS *metric* = sqrt(JS divergence) (reference: space_js.h kJSFast*
+    metric variants, init_spaces.h:69-71; registered but absent from the
+    Zig whitelist)."""
+
+    def _block_impl(self, qenc, xc, precision):
+        return torch.sqrt(torch.clamp_min(super()._block_impl(qenc, xc, precision), 0.0))
+
+
+@register_space("jsmetrslow")
+class JSMetricSlow(JSMetricSpace):
+    name = "jsmetrslow"
+
+
+@register_space("jsmetrfast")
+class JSMetricFast(JSMetricSpace):
+    name = "jsmetrfast"
+
+
+@register_space("jsmetrfastapprox")
+class JSMetricFastApprox(JSMetricSpace):
+    name = "jsmetrfastapprox"
+
+
+# ---------------- alpha-beta / Renyi divergences ----------------
+
+
+class AlphaBetaDivSpace(DenseSpace):
+    """Alpha-beta divergence (reference: space_ab_diverg.h,
+    src/distcomp_diverg.cc), alpha, beta != 0, alpha+beta != 0."""
+
+    def __init__(self, params=None, device="cpu"):
+        pm = ParamManager(params)
+        self.alpha = pm.get("alpha", 1.0, float)
+        self.beta = pm.get("beta", 1.0, float)
+        pm.check_unused()
+        if self.alpha == 0 or self.beta == 0 or self.alpha + self.beta == 0:
+            raise InvalidArgumentError("abdiv requires alpha != 0, beta != 0, alpha+beta != 0")
+        super().__init__(params, device)
+
+    def _transform_x(self, v):
+        return np.maximum(v, _TINY) ** self.beta
+
+    def _transform_q(self, v):
+        return np.maximum(v, _TINY) ** self.alpha
+
+    def _term_x(self, v):
+        return torch.sum(torch.clamp_min(v, _TINY) ** (self.alpha + self.beta), dim=1)
+
+    _term_q = _term_x
+
+    def pass1_affine(self):
+        a, b = self.alpha, self.beta
+        s = a + b
+        return (-1.0 / (a * b), 1.0 / (s * b), 1.0 / (s * a))
+
+    def _block_impl(self, qenc, xc, precision):
+        return D.abdiv_blocked(
+            qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], self.alpha, self.beta, precision
+        )
+
+
+@register_space("abdiv_fast")
+class ABDivFast(AlphaBetaDivSpace):
+    name = "abdiv_fast"
+
+
+@register_space("abdiv_slow")
+class ABDivSlow(AlphaBetaDivSpace):
+    name = "abdiv_slow"
+
+
+class RenyiDivSpace(DenseSpace):
+    """Renyi divergence D_a(q||x) = log(sum q^a x^(1-a)) / (a-1), a != 1."""
+
+    def __init__(self, params=None, device="cpu"):
+        pm = ParamManager(params)
+        self.alpha = pm.get("alpha", 0.5, float)
+        pm.check_unused()
+        if self.alpha == 1.0 or self.alpha <= 0:
+            raise InvalidArgumentError("renyidiv requires alpha > 0, alpha != 1")
+        super().__init__(params, device)
+
+    def _transform_x(self, v):
+        return np.maximum(v, _TINY) ** (1.0 - self.alpha)
+
+    def _transform_q(self, v):
+        return np.maximum(v, _TINY) ** self.alpha
+
+    def _block_impl(self, qenc, xc, precision):
+        return D.renyi_blocked(qenc["q"], xc["x"], self.alpha, precision)
+
+
+@register_space("renyidiv_fast")
+class RenyiDivFast(RenyiDivSpace):
+    name = "renyidiv_fast"
+
+
+@register_space("renyidiv_slow")
+class RenyiDivSlow(RenyiDivSpace):
+    name = "renyidiv_slow"
 
 
 # ---------------- uint8 SIFT integer L2^2 ----------------
@@ -362,3 +689,17 @@ class L2SqrSiftSpace(DenseSpace):
         g = D.int8_dot(qenc["q"], xc["x"])
         d = qenc["q_term"][:, None] + xc["x_term"][None, :] - 2.0 * g - qenc["_dimconst"]
         return torch.clamp_min(d, 0.0)
+
+
+# ---------------- dummy ----------------
+
+
+@register_space("dummy")
+class DummySpace(DenseSpace):
+    """Trivial example space (reference: space_dummy.h): L1 on dense
+    vectors, enough to exercise the method machinery end to end."""
+
+    name = "dummy"
+
+    def _block_impl(self, qenc, xc, precision):
+        return D.l1_blocked(qenc["q"], xc["x"])
