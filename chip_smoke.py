@@ -148,6 +148,24 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     1000, exact distances, and Index("l1") over 20,000 rows (the generic
     pair scoring) with check_graph zero, self-queries first and recall@10
     at efSearch=100 >= 0.9.
+18. sparse, the sparse spaces over seeded sparse_like bag-of-words rows:
+    (a) bench.py's config 5, nothing cut: cosinesimil_sparse over 100,000
+    rows (vocab 30,000, 64 terms a row), 512 queries at k=10; the exact
+    scan (median of 5) against a float64 scipy oracle; HNSW with exact
+    waves (sketchDim=0, M=16, efConstruction=100, waveSize=512): build
+    seconds, peak memory, check_graph all zero, recall@10 against the scan
+    and qps (best of 3) at efSearch 50 and 100 (recall >= 0.95 at 100),
+    every distance its id's f64 distance, and save/load in each mode with
+    results bit-identical; (b) the default build on the same rows (the
+    JL-sketch proxy, sketchDim=1024, exactBase, exactPairs), the same
+    checks; (c) the 1M exact scan (1,000,000 rows, vocab 60,000): median of
+    5, peak memory, 64 queries against the f64 oracle; (d) at 10,000 rows
+    every sparse name's kNN and range against its f64 oracle, HNSW with
+    sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse and
+    sparse_jaccard HNSW (recall@10 at efSearch=100 >= 0.5, 0.9, 0.85, 0.9), R
+    drawn on the card against R drawn on the CPU, whether the native
+    pack_csr built. No kernel lies on this path: torch ops, as they are XLA
+    ops in tpu_knn.
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1868,6 +1886,380 @@ def _dense_range_check(name, ix, qpts, q_dev, x_dev, d10):
           f"({undecided} within it)", flush=True)
 
 
+# ---------------- phase 18: the sparse spaces ----------------
+
+#: each sparse name, the parameters the phase gives it, and its f64 oracle
+SPARSE_NAMES = {
+    "cosinesimil_sparse": "cosine", "cosinesimil_sparse_fast": "cosine",
+    "cosinesimil_sparse_bin_fast": "cosine_bin", "angulardist_sparse": "angular",
+    "angulardist_sparse_fast": "angular", "negdotprod_sparse": "negdot", "negdotprod_sparse_fast": "negdot",
+    "negdotprod_sparse_bin_fast": "negdot_bin", "querynorm_negdotprod_sparse": "querynorm",
+    "querynorm_negdotprod_sparse_fast": "querynorm", "l1_sparse": "l1", "l2_sparse": "l2",
+    "linf_sparse": "linf", "lp_sparse": "lp3", "sparse_jaccard": "jaccard", "jaccard_sparse": "jaccard",
+}
+
+
+def _csr64(points, vocab: int):
+    """scipy CSR float64 [n, vocab] of (1-based ids, values) points."""
+    import scipy.sparse as sp
+
+    lens = np.fromiter((len(p[0]) for p in points), np.int64, len(points))
+    indptr = np.concatenate([[0], np.cumsum(lens)])
+    cols = np.concatenate([p[0] for p in points]).astype(np.int64) - 1
+    vals = np.concatenate([p[1] for p in points]).astype(np.float64)
+    return sp.csr_matrix((vals, cols, indptr), shape=(len(points), vocab))
+
+
+def _sparse_f64(kind: str, q, x):
+    """Distances float64 [Q, N] of the CSR queries ``q`` to the CSR rows
+    ``x`` by the reference formulas (space_sparse_*.h), and a bound f64
+    [Q, N] on the error of an f32 evaluation of them: 4 (2 nnz + 16) u
+    times the magnitudes the sums run over."""
+    if kind.endswith("_bin"):
+        q, x, kind = q.copy(), x.copy(), kind[:-4]
+        q.data[:], x.data[:] = 1.0, 1.0
+    nnz = max(int(np.diff(x.indptr).max()), int(np.diff(q.indptr).max()))
+    c = 4.0 * (2 * nnz + 16) * U
+    if kind in ("cosine", "angular", "negdot", "querynorm", "jaccard"):
+        if kind == "jaccard":
+            q, x = q.copy(), x.copy()
+            q.data[:], x.data[:] = 1.0, 1.0
+        dot = (q @ x.T.tocsc()).toarray()  # sparse times sparse: the posting lists of the query terms
+        qn = np.sqrt(np.asarray(q.multiply(q).sum(1)))
+        xn = np.sqrt(np.asarray(x.multiply(x).sum(1))).T
+        if kind == "jaccard":
+            ql, xl = np.diff(q.indptr)[:, None], np.diff(x.indptr)[None, :]
+            union = ql + xl - dot
+            return np.where(union > 0, 1.0 - dot / np.maximum(union, 1), 0.0), c * np.ones_like(dot)
+        mag = qn * xn
+        if kind == "negdot":
+            return -dot, c * mag
+        if kind == "querynorm":
+            return -dot / np.maximum(qn, 1e-10), c * xn * np.ones_like(dot)
+        cos = dot / np.maximum(mag, 1e-10)
+        if kind == "cosine":
+            return np.maximum(0.0, 1.0 - cos), c * np.ones_like(dot)
+        # arccos is steep near +-1: its bound grows as 1/sqrt(1 - cos^2)
+        return np.arccos(np.clip(cos, -1.0, 1.0)), c / np.sqrt(np.maximum(1.0 - cos**2, c))
+    # the Lp family over the union of the supports, a block of queries at a time
+    xc = x.tocsc()
+    out = np.empty((q.shape[0], x.shape[0]))
+    mag = np.empty_like(out)
+    rows = np.repeat(np.arange(x.shape[0]), np.diff(x.indptr))
+    p = {"l1": 1.0, "l2": 2.0, "lp3": 3.0, "linf": np.inf}[kind]
+    for r in range(q.shape[0]):
+        qd = q[r].toarray()[0]
+        qv = qd[x.indices]
+        ax = np.abs(x.data - qv)
+        if np.isinf(p):  # every row holds an element: reduceat sees no empty segment
+            m_x = np.maximum.reduceat(ax, x.indptr[:-1])
+            qi = q[r].indices
+            present = (xc[:, qi] != 0).toarray() if len(qi) else np.zeros((x.shape[0], 0), bool)
+            m_q = np.max(np.where(present, 0.0, np.abs(q[r].data)[None, :]), axis=1, initial=0.0)
+            out[r] = np.maximum(m_x, m_q)
+            mag[r] = out[r]
+            continue
+        term = np.bincount(rows, ax**p - np.abs(qv) ** p, x.shape[0]) + np.sum(np.abs(q[r].data) ** p)
+        s = np.maximum(term, 0.0)
+        out[r] = s ** (1.0 / p)
+        # the sum of the |terms| bounds its rounding; the root divides it by p
+        mag[r] = (np.bincount(rows, ax**p + np.abs(qv) ** p, x.shape[0]) + np.sum(np.abs(q[r].data) ** p)) \
+            / (p * np.maximum(s, 1e-30) ** (1.0 - 1.0 / p))
+    return out, c * mag
+
+
+def _check_sparse_knn(label, ids, dists, d64, b64, k: int):
+    """Held to the float64 oracle: every returned distance within rtol 5e-3
+    (and the f32 bound) of its id's f64 distance, and the returned ids a
+    top-k of the oracle up to ties: the i-th returned f64 distance within
+    twice the bound of the oracle's i-th. Returns (ids that differ from the
+    oracle's, largest |returned - f64|)."""
+    _require(ids.shape == (d64.shape[0], k) and bool((ids >= 0).all()),
+             lambda: f"{label}: ids {ids.shape} or a missing id")
+    rows = np.arange(ids.shape[0])[:, None]
+    got64 = d64[rows, ids]
+    err = np.abs(dists.astype(np.float64) - got64)
+    _require(bool(np.all(err <= np.maximum(5e-3 * np.abs(got64) + 1e-5, b64[rows, ids]))),
+             lambda: f"{label}: a distance off its id's f64 value by {float(err.max()):.3g}")
+    order = np.argsort(d64, axis=1, kind="stable")[:, :k]
+    want = d64[rows, order]
+    tol = 2.0 * np.maximum(b64[rows, order], b64[rows, ids])
+    _require(bool(np.all(np.abs(np.sort(got64, axis=1) - want) <= tol + 1e-12)),
+             lambda: f"{label}: the returned ids are not a top-{k} of the f64 oracle up to ties")
+    return int(np.sum(np.sort(ids, 1) != np.sort(order, 1))), float(err.max())
+
+
+def _check_sparse_range(label, res, d64, b64, radius: float):
+    """range results against the oracle: every point beyond twice the bound
+    from the radius in or out as the oracle says, distances within the
+    bound. Returns (hits, undecided points)."""
+    wrong = undecided = hits = 0
+    for r, hit in enumerate(res):
+        inside = np.zeros(d64.shape[1], bool)
+        inside[hit.ids] = True
+        sure = np.abs(d64[r] - radius) > 2.0 * b64[r]
+        wrong += int(np.sum((inside != (d64[r] <= radius)) & sure))
+        undecided += int(np.sum(~sure))
+        hits += len(hit.ids)
+        _require(bool(np.all(np.abs(hit.dists - d64[r, hit.ids]) <= np.maximum(b64[r, hit.ids], 1e-6))),
+                 lambda: f"{label}: query {r} has a range distance off its f64 value")
+    _require(wrong == 0, lambda: f"{label}: {wrong} points in or out against the f64 oracle")
+    return hits, undecided
+
+
+def _timed_knn(idx, pts, k: int, reps: int, agg):
+    """(agg of ``reps`` synced walls in seconds, dists, ids) after one warm call."""
+    import torch
+
+    idx.knn_query_batch(pts, k)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        d, i = idx.knn_query_batch(pts, k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return agg(walls), d, i
+
+
+def _phase_sparse(smi):
+    """Phase 18: the sparse spaces over sparse_like bag-of-words corpora
+    (the NMSLIB TF-IDF deployments, which the repository does not hold).
+    (a) bench.py's config 5: cosinesimil_sparse over 100,000 rows of
+    sparse_like(102_048, vocab=30_000, nnz=64, seed=0), 512 queries, k=10:
+    the exact scan against a float64 scipy oracle and the sketchDim=0 HNSW
+    build (M=16, efConstruction=100, waveSize=512); (b) the default build
+    (sketch proxy, sketchDim=1024, exactBase, exactPairs) on the same rows;
+    (c) the 1M exact scan (sparse_like(1_000_512, vocab=60_000, nnz=64));
+    (d) 10,000-row side cells. Returns the numbers it printed."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_knn_torch import DataKind, Index, Params
+    from tpu_knn_torch.eval.datasets import sparse_like
+    from tpu_knn_torch.io import native
+    from tpu_knn_torch.ops import graph as G
+    from tpu_knn_torch.ops import sparse as S
+
+    out = {}
+    zero = {"self_links": 0, "dup_links": 0, "oob_links": 0}
+    n, nq, k, vocab = 100_000, 512, K, 30_000
+    th = time.perf_counter()
+    pts = sparse_like(n + 2048, vocab=vocab, nnz=64, seed=0)
+    corpus, queries = pts[:n], pts[n:n + nq]
+    x64, q64 = _csr64(corpus, vocab), _csr64(queries, vocab)
+    print(f"[sparse] data: sparse_like({n + 2048}, vocab={vocab}, nnz=64, seed=0) in {time.perf_counter() - th:.2f} s, "
+          f"{x64.nnz / n:.2f} distinct terms per row; native pack_csr {native.available()}", flush=True)
+
+    # ---- (a) the exact scan ----
+    t0 = time.perf_counter()
+    d64, b64 = _sparse_f64("cosine", q64, x64)
+    oracle_s = time.perf_counter() - t0
+    ex = Index("cosinesimil_sparse", method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+    tb = time.perf_counter()
+    ex.add_sparse_batch(corpus, ids=range(n))  # object ids = row positions of the oracle
+    ex.build_index()
+    torch.cuda.synchronize()
+    scan_build = time.perf_counter() - tb
+    torch.cuda.reset_peak_memory_stats()
+    med, de, ie = _timed_knn(ex, queries, k, 5, statistics.median)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    diff, err = _check_sparse_knn("scan cosinesimil_sparse 100k", ie, de, d64, b64, k)
+    out["scan_100k"] = {"qps": nq / med, "ms": med * 1e3, "peak_gib": peak}
+    print(f"[sparse] (a) scan cosinesimil_sparse {n} rows, {nq} queries, k={k}: encode {scan_build:.2f} s, median of 5 "
+          f"{med * 1e3:.2f} ms, {nq / med:.0f} qps, peak allocated {peak:.3f} GiB; route {ex.method.last_route}; "
+          f"ids against the f64 scipy oracle ({oracle_s:.1f} s): {diff} differ on ties, max |dist - f64| {err:.3g}; "
+          f"{smi}", flush=True)
+    _require(ex.method.last_route == "single", lambda: f"the sparse scan took the {ex.method.last_route} route")
+
+    def hnsw_cell(label, params, ix=None):
+        ix = ix or Index("cosinesimil_sparse", data_type=DataKind.SPARSE, device="cuda")
+        ix.add_sparse_batch(corpus, ids=range(n))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tb = time.perf_counter()
+        ix.build_index(Params(params))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - tb
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        chk = ix.method.check_graph()
+        rows = {}
+        for ef in (50, 100):
+            ix.set_query_time_params(Params(efSearch=ef))
+            best, dh, ih = _timed_knn(ix, queries, k, 3, min)
+            rows[ef] = {"recall": _recall_at(ih, ie, k), "qps": nq / best, "ms": best * 1e3}
+            got64 = d64[np.arange(nq)[:, None], ih]
+            exact = bool((ih >= 0).all() and np.all(np.abs(dh - got64) <= np.maximum(5e-3 * np.abs(got64) + 1e-5,
+                                                                                      b64[np.arange(nq)[:, None], ih])))
+            _require(exact, lambda: f"{label} efSearch={ef}: a distance off its id's f64 value")
+        print(f"[sparse] {label} {n} rows, {params}: build {build_s:.2f} s, peak allocated {peak:.3f} GiB, "
+              f"check_graph {chk}, " + ", ".join(
+                  f"efSearch={ef} recall@{k} {r['recall']:.4f} best of 3 {r['ms']:.2f} ms {r['qps']:.0f} qps"
+                  for ef, r in rows.items()) + f", distances exact; {smi}", flush=True)
+        _require(chk == zero, lambda: f"{label}: check_graph {chk}")
+        _require(rows[100]["recall"] >= 0.95, lambda: f"{label}: recall@10 at efSearch=100 {rows[100]['recall']}")
+        return ix, {"build_s": build_s, "peak_gib": peak, "search": rows}
+
+    G.reset_counters()
+    hx, out["hnsw_exact"] = hnsw_cell("(a) hnsw sketchDim=0", dict(M=16, efConstruction=100, waveSize=512,
+                                                                    sketchDim=0))
+    # ---- save/load of (a)'s index in each mode ----
+    hx.set_query_time_params(Params(efSearch=100))
+    d0, i0 = hx.knn_query_batch(queries, k)
+    tmp = tempfile.mkdtemp(prefix="tk_sparse_")
+    try:
+        for save_data in (True, False):
+            path = os.path.join(tmp, f"sp{int(save_data)}")
+            hx.save(path, save_data=save_data)
+            for load_data in (True, False):
+                ld = Index.load(path, load_data=load_data, device="cuda")
+                ld.set_query_time_params(Params(efSearch=100))
+                d1, i1 = ld.knn_query_batch(queries, k)
+                _require(np.array_equal(i0, i1) and np.array_equal(d0, d1),
+                         lambda: f"sparse save_data={save_data} load_data={load_data}: results changed")
+                del ld
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[sparse] save/load of (a)'s index, save_data and load_data each True and False: results bit-identical",
+          flush=True)
+    del hx
+    _, out["hnsw_default"] = hnsw_cell("(b) hnsw default (sketch proxy)", dict(M=16, efConstruction=100,
+                                                                               waveSize=512))
+    del ex
+    torch.cuda.empty_cache()
+
+    # ---- (d) side cells at 10,000 rows (cut from 20,000 to keep the phase near 300 s) ----
+    n2, nq2 = 10_000, 256
+    c2, q2 = corpus[:n2], queries[:nq2]
+    x2, qq2 = x64[:n2], q64[:nq2]
+    oracles = {}
+    t0 = time.perf_counter()
+    for name, kind in SPARSE_NAMES.items():
+        if kind not in oracles:
+            oracles[kind] = _sparse_f64(kind, qq2, x2)
+        dd, bb = oracles[kind]
+        prm = Params(p=3.0) if name == "lp_sparse" else None
+        ix = Index(name, prm, method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+        ix.add_sparse_batch(c2, ids=range(n2))
+        dk, ik = ix.knn_query_batch(q2, k)
+        diff, err = _check_sparse_knn(f"scan {name}", ik, dk, dd, bb, k)
+        radius = float(np.median(np.sort(dd, axis=1)[:, k - 1]))
+        hits, und = _check_sparse_range(f"range {name}", ix.range_query_batch(q2, radius), dd, bb, radius)
+        print(f"[sparse] (d) {name} {n2} rows, {nq2} queries: kNN ids {diff} differ from the f64 oracle on ties, max "
+              f"|dist - f64| {err:.3g}; range at {radius:.6g}: {hits} hits, in or out as the oracle says "
+              f"({und} within the bound of the radius)", flush=True)
+    out["names_s"] = time.perf_counter() - t0
+
+    dd, bb = oracles["cosine"]
+    gold = np.argsort(dd, axis=1, kind="stable")[:, :k]
+    side = {}
+    # recall@10 floors at efSearch=100: sketch traversal is limited by the
+    # sketch's noise; l2 over unnormalized bag-of-words rows is harder for
+    # the graph (its exact-wave graph holds tpu_knn's neighbour sets on the
+    # CPU, tests/test_torch_sparse.py, so its recall is tpu_knn's)
+    for label, name, params, floor in (
+            ("sketchQuery=1", "cosinesimil_sparse", dict(sketchQuery=1), 0.5),
+            ("exactPost=1 exactShrink=1", "cosinesimil_sparse", dict(exactPost=1, exactShrink=1), 0.9),
+            ("l2_sparse", "l2_sparse", {}, 0.85),
+            ("sparse_jaccard", "sparse_jaccard", {}, 0.9)):
+        ix = Index(name, data_type=DataKind.SPARSE, device="cuda")
+        ix.add_sparse_batch(c2, ids=range(n2))
+        tb = time.perf_counter()
+        ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
+        torch.cuda.synchronize()
+        bs = time.perf_counter() - tb
+        chk = ix.method.check_graph()
+        ix.set_query_time_params(Params(efSearch=100))
+        dh, ih = ix.knn_query_batch(q2, k)
+        dn, bn = oracles[SPARSE_NAMES[name]]
+        g = gold if name == "cosinesimil_sparse" else np.argsort(dn, axis=1, kind="stable")[:, :k]
+        rec = _recall_at(ih, g, k)
+        got64 = dn[np.arange(nq2)[:, None], ih]
+        exact = bool((ih >= 0).all() and np.all(np.abs(dh - got64) <= np.maximum(
+            5e-3 * np.abs(got64) + 1e-5, bn[np.arange(nq2)[:, None], ih])))
+        side[label] = {"build_s": bs, "recall": rec}
+        print(f"[sparse] (d) hnsw {label} {n2} rows: build {bs:.2f} s, check_graph {chk}, recall@{k} at efSearch=100 "
+              f"{rec:.4f} against the f64 oracle, distances exact {exact}; {smi}", flush=True)
+        _require(chk == zero and exact, lambda: f"hnsw {label}: check_graph {chk}, distances exact {exact}")
+        _require(rec >= floor, lambda: f"hnsw {label}: recall {rec} below {floor}")
+    out["side"] = side
+
+    # ---- where a 10,000-row build's time goes: wave phases, a sync at each edge ----
+    from tpu_knn_torch.methods.hnsw import Hnsw
+
+    out["wave_profile"] = {}
+    for label, params in (("sketchDim=0", dict(sketchDim=0)), ("default", {})):
+        Hnsw.wave_profile = {}
+        try:
+            ix = Index("cosinesimil_sparse", data_type=DataKind.SPARSE, device="cuda")
+            ix.add_sparse_batch(c2, ids=range(n2))
+            tb = time.perf_counter()
+            ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
+            torch.cuda.synchronize()
+            prof = {"build_s": time.perf_counter() - tb, **Hnsw.wave_profile}
+        finally:
+            Hnsw.wave_profile = None
+        out["wave_profile"][label] = prof
+        print(f"[sparse] (d) hnsw {label} {n2} rows, wave phases timed: " + ", ".join(
+            f"{key} {v:.3f} s" for key, v in prof.items()) + f"; {smi}", flush=True)
+
+    # ---- R drawn on the card against R drawn on the CPU ----
+    v_pad = 30_080
+    r_dev = S.sketch_matrix(v_pad, 1024, 0, "cuda").cpu().numpy()
+    r_cpu = S.sketch_matrix(v_pad, 1024, 0, "cpu").numpy()
+    ulp = int(np.abs(r_dev.view(np.int32).astype(np.int64) - r_cpu.view(np.int32)).max())
+    ndiff = int(np.sum(r_dev != r_cpu))
+    print(f"[sparse] R f32[{v_pad}, 1024] from seed 0 drawn on the card against the CPU: {ndiff} values differ, "
+          f"max {ulp} ulp", flush=True)
+    _require(ulp <= 2, lambda: f"R on the card differs from the CPU's by {ulp} ulp")
+    out["r_ulp"] = ulp
+    del r_dev, r_cpu
+
+    # ---- (c) the 1M exact scan ----
+    n3, vocab3 = 1_000_000, 60_000
+    th = time.perf_counter()
+    p3 = sparse_like(n3 + 512, vocab=vocab3, nnz=64, seed=0)
+    c3, qq3 = p3[:n3], p3[n3:n3 + nq]
+    data_s = time.perf_counter() - th
+    big = Index("cosinesimil_sparse", method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+    tb = time.perf_counter()
+    big.add_sparse_batch(c3, ids=range(n3))
+    big.build_index()
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - tb
+    torch.cuda.reset_peak_memory_stats()
+    med3, d3, i3 = _timed_knn(big, qq3, k, 5, statistics.median)
+    peak3 = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    o3, ob3 = _sparse_f64("cosine", _csr64(qq3[:64], vocab3), _csr64(c3, vocab3))
+    diff3, err3 = _check_sparse_knn("scan cosinesimil_sparse 1M", i3[:64], d3[:64], o3, ob3, k)
+    oracle_s = time.perf_counter() - t0
+    # the least time for the scan's work: the corpus elements (id and value)
+    # and the query block read once, the top-k written once, against one
+    # multiply-add a query and corpus element at the FP32 peak
+    lens = np.fromiter((len(p[0]) for p in c3), np.int64, n3)
+    nnz3 = int(lens.sum())
+    bound_ms = max((8 * nnz3 + 4 * nq * vocab3 + 8 * nq * k) / 3.35e12, 2 * nq * nnz3 / 67e12) * 1e3
+    # the library call for the dots alone: cuSPARSE's CSR times dense
+    crow = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).cuda()
+    xcol = torch.from_numpy(np.concatenate([p[0] for p in c3]).astype(np.int64) - 1).cuda()
+    xval = torch.from_numpy(np.concatenate([p[1] for p in c3])).cuda()
+    xs = torch.sparse_csr_tensor(crow, xcol, xval, size=(n3, vocab3))
+    qt = torch.from_numpy(_csr64(qq3, vocab3).toarray().T.astype(np.float32)).cuda().contiguous()
+    lib_ms = _cuda_ms(lambda: torch.sparse.mm(xs, qt), 5)
+    del xs, qt, crow, xcol, xval
+    out["scan_1m"] = {"qps": nq / med3, "ms": med3 * 1e3, "peak_gib": peak3, "bound_ms": bound_ms,
+                      "library_ms": lib_ms}
+    print(f"[sparse] (c) scan cosinesimil_sparse {n3} rows (vocab {vocab3}, {nnz3} elements), {nq} queries: data "
+          f"{data_s:.1f} s, add + encode {enc_s:.1f} s, median of 5 {med3 * 1e3:.2f} ms, {nq / med3:.0f} qps, peak "
+          f"allocated {peak3:.3f} GiB; bound {bound_ms:.3f} ms; library torch.sparse.mm of the dots alone "
+          f"{lib_ms:.3f} ms (CUDA events, mean of 5); 64 queries against the f64 oracle ({oracle_s:.1f} s): "
+          f"{diff3} ids differ on ties, max |dist - f64| {err3:.3g}; {smi}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2296,6 +2688,14 @@ def main() -> int:
     del corpus, queries
     t0 = _phase("dense", t0)
     print("[dense] " + json.dumps(dn) + f"; {smi}", flush=True)
+
+    # ---- 18. sparse: the sparse spaces, exact scan and HNSW ----
+    sn = _phase_sparse(smi)
+    t0 = _phase("sparse", t0)
+    print("[sparse] " + json.dumps({
+        "scan_100k": sn["scan_100k"], "hnsw_exact": sn["hnsw_exact"], "hnsw_default": sn["hnsw_default"],
+        "scan_1m": sn["scan_1m"], "side": sn["side"], "wave_profile": sn["wave_profile"], "r_ulp": sn["r_ulp"]},
+        default=float) + f"; {smi}", flush=True)
 
     src_wgmma = "tpu_knn_torch/csrc/groupmin_wgmma.cu"
     rows = [

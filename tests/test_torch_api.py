@@ -126,10 +126,11 @@ def test_registry_parity():
     assert tpu_knn_torch.clear_upload_cache() == 0
     assert TR.SPACE_TYPES_WHITELIST == JR.SPACE_TYPES_WHITELIST
     assert TR.SPACE_ALIASES == JR.SPACE_ALIASES
-    # every dense space of tpu_knn; the sparse, string, bit, embed, fusion
-    # and sqfd spaces come in later slices
-    dense = sorted(n for n, c in JR._SPACES.items() if c.__module__ == "tpu_knn.spaces.dense")
-    assert tpu_knn_torch.known_spaces() == dense and len(dense) == 30
+    # every dense and sparse space of tpu_knn; the string, bit, embed,
+    # fusion and sqfd spaces come in later slices
+    ported = sorted(n for n, c in JR._SPACES.items() if c.__module__ in ("tpu_knn.spaces.dense",
+                                                                          "tpu_knn.spaces.sparse"))
+    assert tpu_knn_torch.known_spaces() == ported and len(ported) == 30 + 16
     assert set(tpu_knn_torch.known_spaces()) <= set(tpu_knn.known_spaces())
     assert tpu_knn_torch.known_methods() == ["brute_force", "hnsw", "seq_search"]
     for name in ("l2", "cosine", "sparse_l2", "no_such_space"):

@@ -2,8 +2,8 @@
 replayed against tpu_knn_torch on the CPU, with the default method (hnsw, as
 the tpu_knn test runs them) and with method="seq_search". Workflow 3 (uint8)
 is below for hnsw and in tests/test_torch_sift.py
-test_3_uint8_vector_workflow_on_the_port for seq_search; workflows 2 (sparse)
-and 4 (strings) wait for their spaces."""
+test_3_uint8_vector_workflow_on_the_port for seq_search; workflow 4
+(strings) waits for its space."""
 
 import math
 import os
@@ -57,6 +57,29 @@ def test_1_dense_vector_workflow(tmp_path):
 
 def test_1_dense_vector_workflow_default_method(tmp_path):
     _workflow_1(tmp_path, None)
+
+
+def _workflow_2(method):
+    """lib.zig:1315 'Index sparse vector workflow'."""
+    idx = _mk("cosinesimil_sparse", None, method, data_type=DataKind.SPARSE)
+    pts = [
+        (np.asarray([1, 3, 5]), np.asarray([1.0, 2.0, 3.0], np.float32)),
+        (np.asarray([2, 3]), np.asarray([4.0, 5.0], np.float32)),
+    ]
+    idx.add_sparse_batch(pts)
+    res = idx.knn_query(pts[0], 2)  # auto-build on the first query
+    assert res.ids[0] == 1  # default sparse ids are 1-based (lib.zig:748)
+    assert res.dists[0] == pytest.approx(0.0, abs=1e-5)
+    sp = idx.borrow_data_sparse(1)
+    assert np.array_equal(sp.ids, pts[1][0]) and np.allclose(sp.values, pts[1][1])
+
+
+def test_2_sparse_vector_workflow():
+    _workflow_2("seq_search")
+
+
+def test_2_sparse_vector_workflow_default_method():
+    _workflow_2(None)
 
 
 def test_3_uint8_vector_workflow_default_method():

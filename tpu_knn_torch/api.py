@@ -10,16 +10,18 @@ Preserved semantics:
   * validation: l2*/cosine* require dim (lib.zig:351-378);
   * query batches padded to power-of-two buckets, as tpu_knn does.
 
-Ported so far: dense f32 and uint8 data; every dense space of tpu_knn
-(``l2``, ``l1``, ``linf``, ``lp``, ``cosinesimil`` with its alias
+Ported so far: dense f32, uint8 and sparse data; every dense space of
+tpu_knn (``l2``, ``l1``, ``linf``, ``lp``, ``cosinesimil`` with its alias
 ``cosine``, ``angulardist``, ``negdotprod``, the KL, Itakura-Saito,
 Jensen-Shannon, alpha-beta and Renyi divergences, ``l2sqr_sift`` and
-``dummy``); the exact scan (``seq_search``/``brute_force``) with every
-pass-1 precision tier and every ``precision``, and ``hnsw`` (the default
-method) with the wave build; kNN, async kNN and range queries; save/load
-in tpu_knn's format v3 (io/persist.py), so a file either package writes
-loads in the other. ``mesh=`` and the other methods come in later slices
-(ROADMAP.md).
+``dummy``) and every sparse one (the scalar products with their ``_fast``
+and ``_bin_fast`` variants, the Lp family and jaccard); the exact scan
+(``seq_search``/``brute_force``) with every pass-1 precision tier and
+every ``precision``, and ``hnsw`` (the default method) with the wave
+build; kNN, async kNN and range queries; save/load in tpu_knn's format v3
+(io/persist.py), so a file either package writes loads in the other.
+Sparse query batches are lists of (ids, values) or SparsePoint, of any
+length. ``mesh=`` and the other methods come in later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from .core.dataset import DataKind, DataStore, DistKind
+from .core.dataset import DataKind, DataStore, DistKind, SparsePoint
 from .core.errors import InvalidArgumentError
 from .core.params import Params
 from .core.registry import canonical_space_name, create_method, create_space
@@ -167,6 +169,12 @@ class Index:
         self.store.add_uint8_batch(vectors, ids)
         self.built = False
 
+    def add_sparse_batch(self, points, ids: Sequence[int] | None = None) -> None:
+        """Sparse points as (ids, values) pairs or SparsePoint: ids 1-based
+        and strictly increasing; object ids default to 1-based positions."""
+        self.store.add_sparse_batch(points, ids)
+        self.built = False
+
     def _check_dim(self, arr: np.ndarray) -> None:
         want = self.space_params.get("dim")
         if want is not None and arr.ndim >= 1:
@@ -245,7 +253,10 @@ class Index:
         if self.query_batch_bucketing and b > 0:
             bb = max(8, 1 << (b - 1).bit_length())
         if bb != b:
-            pts = np.concatenate([pts, np.repeat(pts[:1], bb - b, axis=0)], 0)
+            if isinstance(pts, np.ndarray):
+                pts = np.concatenate([pts, np.repeat(pts[:1], bb - b, axis=0)], 0)
+            else:  # a list of sparse points
+                pts = list(pts) + [pts[0]] * (bb - b)
         return pts, b
 
     def knn_query_batch_results(self, points: Any, k: int) -> list[QueryResult]:
@@ -278,7 +289,9 @@ class Index:
             return [QueryResult(ids, np.rint(dists)) for ids, dists in res]
         return [QueryResult(ids, dists) for ids, dists in res]
 
-    def _prep_query_points(self, points: Any) -> np.ndarray:
+    def _prep_query_points(self, points: Any):
+        if self.data_type is DataKind.SPARSE:
+            return [p if isinstance(p, SparsePoint) else DataStore.validate_sparse(p) for p in points]
         if self.data_type is DataKind.UINT8:
             arr = np.asarray(points, dtype=np.uint8)
             return arr[None, :] if arr.ndim == 1 else arr
@@ -336,6 +349,9 @@ class Index:
 
     def borrow_data_dense(self, position: int) -> np.ndarray:
         return np.asarray(self.store.get_point(position))
+
+    def borrow_data_sparse(self, position: int) -> SparsePoint:
+        return self.store.get_point(position)
 
     # ---------------- persistence ----------------
 

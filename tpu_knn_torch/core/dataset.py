@@ -6,8 +6,9 @@ pushes it down to C++ (``DataStorage``, reference: lib.zig:169-189,
 per data kind; at build time a method asks the space to *encode* the
 store into padded tensors on the index's device.
 
-Dense layout: f32[N_pad, D_pad] (+ ids i32[N_pad]). The true object count
-is kept in ``count`` and padding rows are masked out of every query.
+Dense layout: f32[N_pad, D_pad] (+ ids i32[N_pad]); sparse layout: padded
+CSR (:class:`SparseDeviceData`). The true object count is kept in
+``count`` and padding rows are masked out of every query.
 """
 
 from __future__ import annotations
@@ -225,6 +226,27 @@ class DenseDeviceData:
     def tensors(self):
         """Every tensor the corpus holds (for memory accounting)."""
         out = [self.vecs, self.ids, self.row_term, *self.extra.values()]
+        return [t for t in out if isinstance(t, torch.Tensor)]
+
+
+@dataclass
+class SparseDeviceData:
+    """Encoded sparse corpus in padded CSR (counterpart of tpu_knn's
+    SparseDeviceData): element ids stay the 1-based ids of the API
+    contract; padding slots hold the PAD_X sentinel and value 0
+    (ops/sparse.py). All tensors live on one device."""
+
+    col: torch.Tensor  # i32[N_pad, nnz_max]
+    val: torch.Tensor  # f32[N_pad, nnz_max]
+    length: torch.Tensor  # i32[N_pad]
+    ids: torch.Tensor  # i32[N_pad], -1 on padding rows
+    count: int
+    row_term: torch.Tensor | None = None
+    extra: dict = field(default_factory=dict)  # "pad": f32[N_pad]; "vocab_mark": int8[V_pad]
+
+    def tensors(self):
+        """Every tensor the corpus holds (for memory accounting)."""
+        out = [self.col, self.val, self.length, self.ids, self.row_term, *self.extra.values()]
         return [t for t in out if isinstance(t, torch.Tensor)]
 
 

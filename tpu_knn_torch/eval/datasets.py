@@ -76,3 +76,55 @@ def sift_like(n: int, d: int = 128, seed: int = 0) -> np.ndarray:
         return np.clip(x * (255.0 / max(mx, 1e-6)), 0, 255).astype(np.float32)
 
     return _cached(f"sift_like_{n}x{d}_s{seed}", make)
+
+
+def sparse_like(
+    n: int,
+    vocab: int = 30_000,
+    nnz: int = 64,
+    n_clusters: int = 200,
+    topic_frac: float = 0.7,
+    seed: int = 0,
+) -> list[tuple[np.ndarray, np.ndarray]]:
+    """Clustered bag-of-words corpus for the sparse spaces: a Zipfian
+    global term distribution plus per-cluster topic terms (a document draws
+    ``topic_frac`` of its terms from its cluster's topic set). Returns
+    ragged [(ids, vals)] with 1-based strictly increasing int32 ids (the
+    sparse API contract) and log-tf-style positive f32 values; repeated
+    terms of a document keep their first draw. The same draws as
+    tpu_knn's, so one seed gives one corpus in both packages."""
+
+    def make():
+        rng = np_rng(seed)
+        # global Zipf-ish inverse-CDF over term ranks
+        p = 1.0 / (np.arange(vocab) + 10.0)
+        cdf = np.cumsum(p) / p.sum()
+        topic_terms = rng.integers(0, vocab, size=(n_clusters, max(nnz * 8, 256)))
+        cl = rng.integers(0, n_clusters, size=n)
+        glob = np.searchsorted(cdf, rng.random((n, nnz))).clip(0, vocab - 1)
+        # topic_terms[cl[:, None], j] is tpu_knn's topic_terms[cl][arange(n)[:, None], j] without the
+        # [n, 512] copy
+        topi = topic_terms[cl[:, None], rng.integers(0, topic_terms.shape[1], size=(n, nnz))]
+        use_topic = rng.random((n, nnz)) < topic_frac
+        ids = np.where(use_topic, topi, glob).astype(np.int64)
+        vals = (1.0 + np.log1p(rng.poisson(1.0, size=(n, nnz)))).astype(np.float32)
+        out = np.zeros((n, nnz, 2), np.float32)
+        out[:, :, 0] = ids
+        out[:, :, 1] = vals
+        return out
+
+    # ids ride in a float32 cache slab: above 2^24 distinct integers stop
+    # being representable and distinct terms would merge
+    if vocab > 1 << 24:
+        raise ValueError(f"sparse_like vocab {vocab} exceeds the f32-exact integer range (2^24)")
+    packed = _cached(f"sparse_like_{n}x{vocab}x{nnz}_s{seed}", make)
+    ids = packed[:, :, 0].astype(np.int64)
+    order = np.argsort(ids, axis=1, kind="stable")
+    ids = np.take_along_axis(ids, order, 1)
+    vals = np.take_along_axis(packed[:, :, 1], order, 1)
+    keep = np.ones_like(ids, dtype=bool)
+    keep[:, 1:] = ids[:, 1:] != ids[:, :-1]  # dedup: the first of equal ids stays
+    splits = np.cumsum(keep.sum(axis=1))[:-1]
+    out_ids = np.split((ids[keep] + 1).astype(np.int32), splits)
+    out_vals = np.split(vals[keep].astype(np.float32), splits)
+    return list(zip(out_ids, out_vals))

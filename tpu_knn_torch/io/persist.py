@@ -14,8 +14,10 @@ embedded arrays when present and the ``.dat.npz`` otherwise, so both
 load modes work for both save modes. Format-v1 headers (no embedded
 data, no v3 layout) raise :class:`DataIOError`.
 
-Only dense and uint8 stores are ported (the port has no sparse or string
-space yet).
+Dense, uint8 and sparse stores are ported (the port has no string space
+yet). A sparse store is saved as its row lengths, concatenated element ids
+and values (``sparse_len``, ``sparse_ids``, ``sparse_vals``), as tpu_knn
+saves it.
 """
 
 from __future__ import annotations
@@ -33,26 +35,37 @@ _FORMAT_VERSION = 3  # v3: data arrays in exactly one artifact (see module doc)
 
 
 def _store_to_arrays(store: DataStore) -> dict[str, np.ndarray]:
-    if store.kind not in (DataKind.DENSE, DataKind.UINT8):
+    if store.kind is DataKind.STRING:
         raise DataIOError(f"saving a {store.kind.value} store is not ported (ROADMAP.md)")
-    return {
-        "ids": np.asarray(store.ids, np.int64),
-        "labels": np.asarray(store.labels, np.int64),
-        "dense": store.dense_matrix(),
-    }
+    out = {"ids": np.asarray(store.ids, np.int64), "labels": np.asarray(store.labels, np.int64)}
+    if store.kind is DataKind.SPARSE:
+        pts = store.sparse_points()
+        out["sparse_len"] = np.asarray([len(p.ids) for p in pts], np.int64)
+        out["sparse_ids"] = np.concatenate([p.ids for p in pts]) if pts else np.zeros(0, np.int32)
+        out["sparse_vals"] = np.concatenate([p.values for p in pts]) if pts else np.zeros(0, np.float32)
+    else:
+        out["dense"] = store.dense_matrix()
+    return out
 
 
 def _store_from_arrays(kind: DataKind, arrays) -> DataStore:
-    if kind not in (DataKind.DENSE, DataKind.UINT8):
+    if kind is DataKind.STRING:
         raise DataIOError(f"loading a {kind.value} store is not ported (ROADMAP.md)")
     store = DataStore(kind)
-    mat = arrays["dense"]
-    if mat.shape[0]:
-        ids = arrays["ids"].tolist()
-        if kind is DataKind.DENSE:
-            store.add_dense_batch(mat, ids)
-        else:
-            store.add_uint8_batch(mat, ids)
+    ids = arrays["ids"].tolist()
+    if kind is DataKind.SPARSE:
+        sids, svals = arrays["sparse_ids"], arrays["sparse_vals"]
+        ends = np.cumsum(arrays["sparse_len"])
+        pts = [(sids[e - n:e], svals[e - n:e]) for n, e in zip(arrays["sparse_len"], ends)]
+        if pts:
+            store.add_sparse_batch(pts, ids)
+    else:
+        mat = arrays["dense"]
+        if mat.shape[0]:
+            if kind is DataKind.DENSE:
+                store.add_dense_batch(mat, ids)
+            else:
+                store.add_uint8_batch(mat, ids)
     store.labels = arrays["labels"].tolist()
     return store
 

@@ -28,12 +28,20 @@ The wave step is eager torch ops on the index's device. Every scatter has
 unique targets or writes equal values, and the group reductions are
 integer ``amax``: the same seed gives the same graph on a GPU too.
 
+A sparse dot-family or jaccard corpus builds on a dense JL-sketch proxy
+by default (``sketchDim`` 1024; spaces/sparse.py SketchProxySpace): the
+beams run on the sketches, and with ``exactBase``/``exactPairs`` (on by
+default) the candidates' base distances and the selection heuristic's
+pair distances are exact in the sparse space. ``exactShrink`` makes the
+shrink decisions exact too, ``exactPost`` re-inserts every point with
+exact scoring after the build, and ``sketchQuery=1`` keeps the proxy for
+queries: a sketch-traversed beam re-ranked exactly. ``sketchDim=0``
+builds with exact waves.
+
 Parameter surface matches tpu_knn's (reference: hnsw.cc:185-218,
 472-507): every parameter it parses is parsed here with the same name,
-default and ValueError, so a header it saved loads. Not ported yet
-(ROADMAP.md): the sketch proxy of the sparse spaces; its parameters are
-read and kept. Range search raises, as in the reference
-(hnsw.cc:710-715).
+default and ValueError, so a header it saved loads. Range search raises,
+as in the reference (hnsw.cc:710-715).
 """
 
 from __future__ import annotations
@@ -91,7 +99,11 @@ def _score_pairs(space, qenc_all, n_total, corpus, ids_a, ids_b):
     extra = G.inject_term(space, rows, extra)
     qe = _gather_qenc(qenc_all, ids_a.clamp(0, n_total - 1), n_total)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
-    if aff is not None and rows.ndim == 3:
+    pb = getattr(space, "pair_block", None)
+    if pb is not None:  # the sparse spaces' pair scorer (ops/sparse.py)
+        vm = corpus.get("vocab_mark")
+        d = pb(qe, rows, pad, extra, None if vm is None else vm.shape[0])
+    elif aff is not None and rows.ndim == 3:
         scale, sq, sx = aff
         s = scale * pair_dot(qe["q"], rows)
         if sq != 0.0 and "q_term" in qe:
@@ -144,6 +156,10 @@ def make_wave_step(
     mates: int,
     expand: int,
     selection: str,  # "none" (delaunay_type=0: keep closest), "heur", "rng"
+    exact_space=None,
+    exact_pairs: bool = False,
+    exact_base: bool = True,
+    exact_shrink: bool = False,
     use_cstore: bool = False,
     merge_forward: bool = False,
     profile: dict | None = None,
@@ -166,18 +182,28 @@ def make_wave_step(
     re-scored from the corpus rows before the heuristic, so quantization
     only perturbs which candidates the beam EXPLORES.
 
+    ``exact_space`` (a sketch-proxy build, with the step's ``ecorpus`` and
+    ``eqenc_all`` of the sparse space): ``exact_base`` re-scores the beam's
+    candidates exactly before selection, ``exact_pairs`` scores the
+    selection heuristic's pairs exactly, ``exact_shrink`` the merge and
+    reverse shrinks. The beams stay on the proxy.
+
     ``profile``: a dict that collects wall seconds per phase of the step
     (each phase then drains the device on both edges).
     """
     big = 2**30  # sort key of an invalid (neighbour, wave point) pair
 
     def wave_step(level0, upper, start: int, wl, entry: int, limit: int, corpus, qenc_all,
-                  cstore=None, xq=None, xscale=None):
+                  cstore=None, xq=None, xscale=None, ecorpus=None, eqenc_all=None):
         """Insert/refresh points [start, start+w). ``limit`` bounds which
         graph nodes may be linked to: ``start`` during the initial build
         (frozen prefix), ``n`` during post passes (full visibility;
         reference: hnsw.cc:251-338)."""
         dev = level0.device
+        exact = exact_space is not None and ecorpus is not None
+
+        def exact_qenc(ids):
+            return G.densify_queries(exact_space, _gather_qenc(eqenc_all, ids, n_total), ecorpus)
 
         def span(key):
             return _Span(profile, key, dev)
@@ -204,6 +230,8 @@ def make_wave_step(
                 extras1 = G.inject_term(space, rows1, extras1)
                 xc_wave = {"x": rows1[0], "pad": pad1[0]}
                 xc_wave.update({kk: vv[0] for kk, vv in extras1.items()})
+                if "vocab_mark" in corpus:  # the sparse table's width carrier
+                    xc_wave["vocab_mark"] = corpus["vocab_mark"]
                 mate_d = space.block(qe, xc_wave)  # [w, w]
                 bad = (wave_ids[None, :] == wave_ids[:, None]) | (wl[None, :] < l) | (wl[None, :] < 0)
                 mate_d = torch.where(bad, INF, mate_d)
@@ -217,7 +245,16 @@ def make_wave_step(
 
                 cand_i = torch.cat([beam_i, mate_sel], dim=1)
                 cand_d = torch.cat([beam_d, mate_dd], dim=1)
-                if use_cstore and l == 0:
+                if exact_base and exact:
+                    # hybrid refinement of a sketch-proxy build: the beam
+                    # found the candidates on proxy scores; their base
+                    # distances are exact in the sparse space, so selection
+                    # ranks true neighbours first (first sorted by the
+                    # proxy, as tpu_knn does, for the order of exact ties)
+                    cand_d, o = torch.sort(cand_d, dim=1, stable=True)
+                    cand_i = torch.gather(cand_i, 1, o)
+                    cand_d = G.score_rows(exact_space, eqe_wave, ecorpus, cand_i)
+                elif use_cstore and l == 0:
                     # the beam ranked candidates by dequantized-int8 store
                     # scores; re-score them from the corpus rows so the
                     # selection heuristic (and the stored edge distances the
@@ -236,7 +273,12 @@ def make_wave_step(
                 keep = valid & (torch.cumsum(valid, dim=1) <= m)
             else:
                 with span("pairs"):
-                    pair_d = _score_pairs(space, qenc_all, n_total, corpus, cand_i, cand_i)
+                    if exact_pairs and exact:
+                        # exact pair distances: on near-tied data proxy pair
+                        # scores make the prune decisions noise
+                        pair_d = _score_pairs(exact_space, eqenc_all, n_total, ecorpus, cand_i, cand_i)
+                    else:
+                        pair_d = _score_pairs(space, qenc_all, n_total, corpus, cand_i, cand_i)
                 with span("select"):
                     keep = G.select_neighbors_heuristic(cand_d, pair_d, m, exact=selection != "rng")
             sel = G.pack_selected(cand_i, keep, m)
@@ -257,7 +299,7 @@ def make_wave_step(
             """A row's old links plus its inserts ``new_c``: appended when
             they fit, else shrunk to ``cap`` by the heuristic over all of
             them (delaunay_type=0: the cap closest, reference
-            hnsw.h:301-312)."""
+            hnsw.h:301-312); with ``exact_shrink`` its pairs are exact."""
             overflow = (old >= 0).sum(dim=1) + (new_c >= 0).sum(dim=1) > cap
             # append path: valid entries first, order preserved
             appended = G.pack_selected(cand, cand >= 0, cap)
@@ -268,7 +310,10 @@ def make_wave_step(
                 keep = validr & (torch.cumsum(validr, dim=1) <= cap)
             else:
                 with span("pairs"):
-                    pair_d = _score_pairs(space, qenc_all, n_total, corpus, si, si)
+                    if exact_shrink and exact:
+                        pair_d = _score_pairs(exact_space, eqenc_all, n_total, ecorpus, si, si)
+                    else:
+                        pair_d = _score_pairs(space, qenc_all, n_total, corpus, si, si)
                 with span("select"):
                     keep = G.select_neighbors_heuristic(sd, pair_d, cap, exact=selection != "rng")
             shrunk = G.pack_selected(si, keep, cap)
@@ -293,7 +338,10 @@ def make_wave_step(
             selx = torch.where(dup, -1, sel)
             cand = torch.cat([old, selx], dim=1)  # [w, cap+m]
             cand = torch.where(cand == wave_ids[:, None], -1, cand)
-            base_d = G.score_rows(space, qe, corpus, cand)
+            if exact_shrink and exact:
+                base_d = G.score_rows(exact_space, eqe_wave, ecorpus, cand)
+            else:
+                base_d = G.score_rows(space, qe, corpus, cand)
             adj[tgt] = shrink_or_append(old, selx, cand, base_d, cap)
 
         def reverse_update(adj, cap, sel, connect):
@@ -332,7 +380,10 @@ def make_wave_step(
             dup_old = (new_c[:, :, None] == old[:, None, :]).any(dim=2)
             new_c = torch.where(dup_old, -1, new_c)
             cand = torch.cat([old, new_c], dim=1)  # [P, cap+gcap]
-            base_d = G.score_rows(space, _gather_qenc(qenc_all, base, n_total), corpus, cand)
+            if exact_shrink and exact:
+                base_d = G.score_rows(exact_space, exact_qenc(base), ecorpus, cand)
+            else:
+                base_d = G.score_rows(space, _gather_qenc(qenc_all, base, n_total), corpus, cand)
             newrow = shrink_or_append(old, new_c, cand, base_d, cap)
             # one target per valid group; the others land in the spare row
             adj[torch.where(grp_valid, base, spare)] = newrow
@@ -340,7 +391,9 @@ def make_wave_step(
         wave_ids = start + torch.arange(w, dtype=torch.int32, device=dev)
         # a last wave may reach past the corpus: those points take the last
         # row's encoding (a clamped gather) and are masked by wl < 0
-        qe = _gather_qenc(qenc_all, wave_ids.clamp(max=n_total - 1), n_total)
+        safe_ids = wave_ids.clamp(max=n_total - 1)
+        qe = G.densify_queries(space, _gather_qenc(qenc_all, safe_ids, n_total), corpus)
+        eqe_wave = exact_qenc(safe_ids) if exact else None
         cur = torch.full((w,), entry, dtype=torch.int32, device=dev)  # global entry point
         cur_d = G.score_rows(space, qe, corpus, cur[:, None])[:, 0]
         for l in range(max_level, 0, -1):
@@ -382,6 +435,7 @@ def make_wave_step(
 def _search_core(space, qenc, data, level0, upper, entry: int, ef: int, k: int, expand: int,
                  nbr_store=None):
     corpus = _corpus_dict(space, data)
+    qenc = G.densify_queries(space, qenc, corpus)
     b = next(v.shape[0] for v in qenc.values() if getattr(v, "ndim", 0) >= 1)
     cur = torch.full((b,), entry, dtype=torch.int32, device=level0.device)
     cur_d = G.score_rows(space, qenc, corpus, cur[:, None])[:, 0]
@@ -404,6 +458,26 @@ def _search_core(space, qenc, data, level0, upper, entry: int, ef: int, k: int, 
         d, pos = beam_d[:, :k], beam_i[:, :k]
     ids = torch.where(pos >= 0, data.ids[pos.clamp(0, data.ids.shape[0] - 1)], -1)
     return d, ids, nd
+
+
+def _search_sketch(pspace, rspace, qenc_p, qenc_r, pdata, rdata, level0, upper, entry: int, ef: int, k: int,
+                   expand: int):
+    """Beam search on the dense sketch proxy, then an exact re-rank of the
+    whole beam in the sparse space: the proxy only steers traversal, the
+    reported distances and ids are exact."""
+    pcorpus = pspace.corpus_dict(pdata)
+    b = qenc_p["q"].shape[0]
+    cur = torch.full((b,), entry, dtype=torch.int32, device=level0.device)
+    cur_d = G.score_rows(pspace, qenc_p, pcorpus, cur[:, None])[:, 0]
+    for adj in reversed(upper):
+        cur, cur_d = G.greedy_descent(pspace, qenc_p, pcorpus, adj, None, cur, cur_d)
+    _, beam_i, nd = G.beam_search(pspace, qenc_p, pcorpus, level0, None, cur, ef=ef, expand=expand)
+    ex_d = G.score_rows(rspace, qenc_r, rspace.corpus_dict(rdata), beam_i)  # exact [B, ef]
+    d, sel = T.smallest_k(ex_d, k)
+    pos = torch.gather(beam_i, 1, sel)
+    pos = torch.where(d >= INF, -1, pos)
+    ids = torch.where(pos >= 0, rdata.ids[pos.clamp(0, rdata.ids.shape[0] - 1)], -1)
+    return d, ids, nd + (beam_i >= 0).sum()
 
 
 @register_method("hnsw")
@@ -460,12 +534,16 @@ class Hnsw(Method):
         # bytes/elem of device memory; opt-in. The final top-k is re-scored
         # exactly either way.
         self.replicate_neighbors = pm.get("replicateNeighbors", 0, int)
-        # sketch-proxy knobs of the sparse spaces: read and kept, used by
-        # nothing until a space provides sketch_proxy
+        # JL-sketch width of the sparse construction proxy (0: exact waves);
+        # consulted only when the space provides sketch_proxy
         self.sketch_dim = pm.get("sketchDim", 1024, int)
+        # sketch-scored query traversal + exact re-rank of the beam
         self.sketch_query = pm.get("sketchQuery", 0, int)
+        # hybrid construction: exact base distances of the candidates and
+        # exact pair distances in the selection heuristic
         self.exact_base = pm.get("exactBase", 1, int)
         self.exact_pairs = pm.get("exactPairs", 1, int)
+        # exact-space post passes after a proxy build, and exact shrinks
         self.exact_post = pm.get("exactPost", 0, int)
         self.exact_shrink = pm.get("exactShrink", 0, int)
         self.nbr_store_dtype = pm.get("nbrStoreDtype", "bfloat16", str)
@@ -481,7 +559,7 @@ class Hnsw(Method):
         self.seed = pm.get("seed", 0, int)
         pm.check_unused()
         self._nbr_store = None
-        self._proxy = None  # the sparse spaces' sketch proxy: always None so far
+        self._proxy = None  # (SketchProxySpace, DenseDeviceData, R) or None
         # query-time defaults (reference: ef/efSearch default 20, hnsw.cc:483)
         self.ef_search = 20
         self._entry = 0  # global entry point (internal id)
@@ -490,7 +568,7 @@ class Hnsw(Method):
         self.levels = None
         self.order = None
         self._qenc_all = None
-        self._exact_qenc_all = None  # exact-space encodings of a proxy build: never set so far
+        self._exact_qenc_all = None  # sparse-space encodings of a proxy build
 
     # ---------------- query-time params ----------------
 
@@ -535,10 +613,13 @@ class Hnsw(Method):
     #: (make_wave_step's ``profile``), with a sync at every phase edge
     wave_profile: dict | None = None
 
+    #: a host f32[V_pad, dskp] matrix that replaces the drawn sketch R
+    #: (spaces/sparse.py sketch_proxy's r_mat): a test hook
+    sketch_r = None
+
     def _resolve_build_algo(self, n: int) -> str:
         """buildAlgo with "auto" resolved: NN-descent from buildAlgoAutoN
-        rows up (sketch-proxy builds stay on waves in tpu_knn; the port
-        has no proxy)."""
+        rows up; sketch-proxy builds stay on waves, as in tpu_knn."""
         algo = self.build_algo
         if algo == "auto":
             algo = "nndescent" if n >= self.build_algo_auto_n and self._proxy is None else "waves"
@@ -683,12 +764,16 @@ class Hnsw(Method):
 
     def _drop_wave_state(self) -> None:
         """Free construction-only device state: the corpus-as-queries
-        encodings (a second full copy of the corpus). Queries run on
+        encodings (a second full copy of the corpus) and, unless
+        sketchQuery traverses it, the sketch proxy. Queries run on
         self.space/self.data."""
         if self.KEEP_WAVE_STATE:
             return
         self._qenc_all = None
-        self._graph_space, self._graph_data = self.space, self.data
+        self._exact_qenc_all = None
+        if not self.sketch_query:
+            self._proxy = None
+            self._graph_space, self._graph_data = self.space, self.data
 
     def _prepare(self, store: DataStore) -> int:
         """Everything before the insertion waves: level sampling, level-
@@ -718,8 +803,16 @@ class Hnsw(Method):
     def _encode_store(self, store: DataStore, n: int, skip_construction: bool = False) -> None:
         """Encode + level-sorted reorder of the corpus, and all corpus
         points as query encodings (used to score point-point pairs during
-        construction)."""
+        construction).
+
+        A sparse dot-family or jaccard space with sketchDim > 0 also gets
+        its JL-sketch proxy (spaces/sparse.py): the graph is built on the
+        proxy's dense rows, and the sparse space's own encodings are kept
+        for the exact refinements (exactBase, exactPairs, exactPost,
+        exactShrink)."""
         self.data = self.space.encode_dataset(store, row_multiple=8)
+        self._proxy = None
+        self._exact_qenc_all = None
         n_pad = self.data.ids.shape[0]
         # index-time scoring may differ from query-time scoring; for every
         # ported space construction_space() is the space itself
@@ -733,14 +826,25 @@ class Hnsw(Method):
             return
         self.data = self._reorder_data(self.data, self.order, n)
         self._graph_data = self.data
-        # a restore with the graph already built never runs waves, and an
-        # NN-descent build scores both sides from corpus rows: skip encoding
-        # a second full corpus copy they would drop
-        self._qenc_all = (
-            None
-            if skip_construction or self._will_use_nnd(n)
-            else self.space.encode_queries(self.space.store_as_query_points(store)[self.order])
-        )
+        mk = getattr(self.space, "sketch_proxy", None)
+        if mk is not None and self.sketch_dim > 0:
+            self._proxy = mk(self.data, self.sketch_dim, self.seed, r_mat=self.sketch_r)
+        points = lambda: self.space.store_as_query_points(store)[self.order]  # noqa: E731
+        if self._proxy is not None:
+            pspace, pdata, _ = self._proxy
+            self._graph_space, self._graph_data = pspace, pdata
+            # corpus points as construction queries ARE the sketches
+            self._qenc_all = None if skip_construction else {"q": pdata.vecs[:n]}
+            if not skip_construction and (self.exact_base or self.exact_pairs or self.exact_post
+                                          or self.exact_shrink):
+                self._exact_qenc_all = self.space.encode_queries(points())
+        else:
+            # a restore with the graph already built never runs waves, and
+            # an NN-descent build scores both sides from corpus rows: skip
+            # encoding a second full corpus copy they would drop
+            self._qenc_all = (
+                None if skip_construction or self._will_use_nnd(n) else self.space.encode_queries(points())
+            )
         # row count of the per-node query encodings (unpadded)
         self._n_total = n
 
@@ -797,6 +901,10 @@ class Hnsw(Method):
         wl_host[: len(self.levels)] = self.levels
         corpus = _corpus_dict(self._graph_space, self._graph_data)
         qenc_all = self._qenc_all
+        ecorpus = eqenc = None
+        if self._exact_qenc_all is not None:
+            ecorpus = _corpus_dict(self.space, self.data)
+            eqenc = self._exact_qenc_all
         dev = self.graph["level0"].device
         wl_all = torch.from_numpy(wl_host).to(dev)
 
@@ -829,7 +937,7 @@ class Hnsw(Method):
             get_step(width)(
                 level0, upper, start, wl_all[start:start + width], self._entry,
                 start,  # frozen-prefix limit during the build
-                corpus, qenc_all, cstore, xqc, xsc,
+                corpus, qenc_all, cstore, xqc, xsc, ecorpus, eqenc,
             )
         # post passes: re-run every point against the FULL graph, merging
         # new neighbourhoods into existing rows (reference: hnsw.cc:251-338
@@ -844,14 +952,30 @@ class Hnsw(Method):
                 step(
                     level0, upper, start, wl_all[start:start + w], self._entry,
                     n_total,  # full visibility
-                    corpus, qenc_all, cstore, xqc, xsc,
+                    corpus, qenc_all, cstore, xqc, xsc, ecorpus, eqenc,
                 )
+        # exact-space post passes (sketch-proxy builds only): the same
+        # rebuild-and-merge loop with the sparse space traversing and
+        # selecting, to rank the near-ties the sketches could not
+        if self._proxy is not None and self.exact_post and eqenc is not None and hi >= n_total:
+            estep = make_wave_step(
+                self.space, self._n_total, w, self._max_level, efc=self.ef_construction, m=self.M,
+                m0cap=self.maxM0, mcap=self.maxM, mates=min(self.wave_mates, w),
+                expand=self.construction_expand, selection="none" if self.delaunay_type == 0 else "heur",
+                merge_forward=True, profile=self.wave_profile,
+            )
+            for _ in range(self.exact_post):
+                for wi in range(num_post - 1, -1, -1):
+                    start = lo + wi * w
+                    estep(level0, upper, start, wl_all[start:start + w], self._entry, n_total, ecorpus, eqenc)
         # the construction store is build-only state
         cstore = xqc = None
         self.graph = {"level0": level0[:-1].clone()}
         self._upper = [u[:-1].clone() for u in upper]
 
     def _reorder_data(self, data, order, n):
+        """The corpus with its rows in ``order`` (padding rows last): every
+        row-indexed tensor field and extra of the dataclass."""
         n_pad = data.ids.shape[0]
         perm = np.concatenate([order, np.arange(n, n_pad)]).astype(np.int64)
         p = torch.from_numpy(perm).to(data.ids.device)
@@ -860,10 +984,8 @@ class Hnsw(Method):
             rowed = isinstance(a, torch.Tensor) and a.ndim >= 1 and a.shape[0] == n_pad
             return a[p] if rowed else a
 
-        return dataclasses.replace(
-            data, vecs=take(data.vecs), ids=take(data.ids), row_term=take(data.row_term),
-            extra={k: take(v) for k, v in data.extra.items()},
-        )
+        fields = {f.name: take(getattr(data, f.name)) for f in dataclasses.fields(data) if f.name != "extra"}
+        return dataclasses.replace(data, **fields, extra={k: take(v) for k, v in data.extra.items()})
 
     # ----- the batched insertion wave -----
 
@@ -881,6 +1003,10 @@ class Hnsw(Method):
             mates=min(self.wave_mates, w),
             expand=self.construction_expand,
             selection="none" if self.delaunay_type == 0 else "heur",
+            exact_space=self.space if self._exact_qenc_all is not None else None,
+            exact_pairs=bool(self.exact_pairs),
+            exact_base=bool(self.exact_base),
+            exact_shrink=bool(self.exact_shrink),
             use_cstore=use_cstore,
             merge_forward=merge_forward,
             profile=self.wave_profile,
@@ -931,6 +1057,10 @@ class Hnsw(Method):
         out = list(self._upper)
         if self._nbr_store is not None:
             out.append(self._nbr_store[1])
+        if self._proxy is not None:
+            # resident when sketchQuery=1: the sketch corpus and R
+            out.append(self._proxy[1].vecs)
+            out.append(self._proxy[2])
         return out
 
     def _get_nbr_store(self):
@@ -961,6 +1091,14 @@ class Hnsw(Method):
             raise IndexNotBuiltError("hnsw: index not built")
         ef = max(self.ef_search, k)
         qenc = self.space.encode_queries(points)
+        if self._proxy is not None and self.sketch_query:
+            pspace, pdata, r_mat = self._proxy
+            d, ids, nd = _search_sketch(
+                pspace, self.space, self.space.sketch_queries(qenc, r_mat), qenc, pdata, self.data,
+                self.graph["level0"], tuple(self._upper), self._entry, ef, k, self._effective_expand(ef),
+            )
+            self._add_dist_comps(nd)
+            return self._finalize_knn(d.cpu().numpy(), ids.cpu().numpy())
         d, ids, nd = _search_core(
             self.space, qenc, self.data, self.graph["level0"], tuple(self._upper),
             self._entry, ef, k, self._effective_expand(ef), nbr_store=self._get_nbr_store(),
@@ -1024,8 +1162,16 @@ class Hnsw(Method):
         self._entry = int(meta[4]) if meta.shape[0] > 4 else 0
         n = len(store)
         # the graph tensors are already built: no construction encodings,
-        # unless the method keeps them for post-build maintenance
-        self._encode_store(store, n, skip_construction=not self.KEEP_WAVE_STATE)
+        # unless the method keeps them for post-build maintenance, and no
+        # sketch proxy unless sketchQuery traverses it (R is drawn again
+        # from the seed)
+        keep_dsk = self.sketch_dim
+        if not self.KEEP_WAVE_STATE and not self.sketch_query:
+            self.sketch_dim = 0
+        try:
+            self._encode_store(store, n, skip_construction=not self.KEEP_WAVE_STATE)
+        finally:
+            self.sketch_dim = keep_dsk
         self._drop_wave_state()
         self._n_total = n
         self._max_level = int(self.levels.max(initial=0)) if n else 0

@@ -64,15 +64,31 @@ def _ids_of(data, pos: torch.Tensor) -> torch.Tensor:
     return torch.where(pos >= 0, data.ids[pos.clamp(0, n_pad - 1)], -1)
 
 
+def _nq(qenc: dict) -> int:
+    """Queries in an encoded batch ('q' dense, 'qcol' sparse)."""
+    return (qenc["q"] if "q" in qenc else qenc["qcol"]).shape[0]
+
+
+def _densify(space, qenc: dict, data) -> dict:
+    """Attach a sparse space's densified query table f32[V, Q] once per
+    scan (tpu_knn's _densify_in_jit, hoisted by XLA there): every
+    scoring site of the scan takes it. A no-op for the other spaces and for
+    corpora without the vocabulary gate."""
+    hook = getattr(space, "densify_queries", None)
+    if hook is None or "vocab_mark" not in getattr(data, "extra", {}):
+        return qenc
+    return hook(qenc, {"vocab_mark": data.extra["vocab_mark"]}, scan=True)
+
+
 def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):
     """Single-pass scan: [Q, chunk] blocks merged into a running top-k."""
-    nq = qenc["q"].shape[0]
+    qenc = _densify(space, qenc, data)
     num_chunks = data.ids.shape[0] // chunk
 
     def chunk_dists(ci):
         return space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
 
-    d, pos = T.streaming_smallest_k(chunk_dists, num_chunks, chunk, nq, k, data.vecs.device)
+    d, pos = T.streaming_smallest_k(chunk_dists, num_chunks, chunk, _nq(qenc), k, data.ids.device)
     return d, _ids_of(data, pos), pos
 
 
@@ -306,8 +322,8 @@ def _range_counts_device(space, qenc, data, radius: float, chunk: int, precision
     """Per-query |{x : d(q,x) <= radius}| as i32[Q]: one chunked scan, never
     [Q, N] (reference seqsearch.cc:109-141; padded corpus rows carry a 1e30
     term, so the radius test drops them)."""
-    nq = qenc["q"].shape[0]
-    acc = torch.zeros(nq, dtype=torch.int32, device=data.vecs.device)
+    qenc = _densify(space, qenc, data)
+    acc = torch.zeros(_nq(qenc), dtype=torch.int32, device=data.ids.device)
     for ci in range(data.ids.shape[0] // chunk):
         d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
         acc += (d <= radius).sum(dim=1, dtype=torch.int32)
@@ -318,13 +334,14 @@ def _range_collect_device(space, qenc, data, radius: float, cap: int, chunk: int
     """Hits within ``radius`` as ascending ([Q, cap] dists, positions);
     slots past a query's count are (+inf, -1). A streaming smallest-``cap``
     merge per chunk: device memory stays O(Q * (cap + chunk))."""
+    qenc = _densify(space, qenc, data)
 
     def chunk_dists(ci):
         d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
         return torch.where(d <= radius, d, T.INF)  # a NaN distance is no hit
 
     return T.streaming_smallest_k(
-        chunk_dists, data.ids.shape[0] // chunk, chunk, qenc["q"].shape[0], cap, data.vecs.device,
+        chunk_dists, data.ids.shape[0] // chunk, chunk, _nq(qenc), cap, data.ids.device,
         nan_free=True,
     )
 
@@ -382,9 +399,12 @@ class SeqSearch(Method):
         kk = min(k, n_pad)
         # the two-pass group-min path pays off once the corpus dwarfs the
         # (k+margin)*128 candidate re-scan; small corpora keep the
-        # single-pass merge
+        # single-pass merge. Sparse spaces opt out (twopass_ok False):
+        # their pass 2 would re-score [Q, kg*128, nnz] gathered elements,
+        # 6.5x tpu_knn's whole single-pass scan at 100k
         use_twopass = (
-            self._chunk % 128 == 0
+            getattr(self.space, "twopass_ok", True)
+            and self._chunk % 128 == 0
             and n_pad % 128 == 0
             and n_pad >= 8 * (kk + 2) * 128
         )
@@ -426,7 +446,7 @@ class SeqSearch(Method):
         SeqSearch.range; reference seqsearch.cc:109-141)."""
         if self.data is None:
             raise IndexNotBuiltError("seq_search: index not built")
-        qenc = self.space.encode_queries(points)
+        qenc = _densify(self.space, self.space.encode_queries(points), self.data)
         radius = float(radius)
         counts = _range_counts_device(
             self.space, qenc, self.data, radius, self._chunk, self.precision

@@ -43,7 +43,10 @@ per query: ``space.block`` of one query against its own gathered rows,
 vmapped over the batch (:func:`score_gathered`), as tpu_knn's ``jax.vmap``
 does. The batch runs in row blocks whose intermediates hold at most
 ops/distance.block_elems elements; every row is scored alone, so the
-blocks change no result. The sparse scorer comes with the sparse spaces.
+blocks change no result. A sparse space scores gathered candidates with
+its own ``gathered_block`` (ops/sparse.py); its densified query table is
+attached once per search by :func:`densify_queries`, where tpu_knn leaves
+the hoisting to XLA.
 """
 
 from __future__ import annotations
@@ -93,6 +96,27 @@ def vmap_blocks(one, qenc: dict, axes: dict, batched: tuple, per_row: int) -> to
     return outs[0] if len(outs) == 1 else torch.cat(outs)
 
 
+#: corpus keys that are not gathered per row with the candidate rows
+_NON_GATHER_KEYS = ("vecs", "pad", "term", "ids", "count", "row_mask", "vocab_mark")
+
+
+def densify_queries(space, qenc: dict, corpus: dict) -> dict:
+    """Attach corpus-sized query tables (the sparse spaces' densified
+    ``q_dense``, sized from the corpus's vocab_mark); a no-op for other
+    spaces and when the table is there."""
+    hook = getattr(space, "densify_queries", None)
+    return qenc if hook is None else hook(qenc, corpus)
+
+
+def _gather_extra(corpus: dict, extra_sl: dict, take) -> dict:
+    """Per-row corpus tensors beyond 'vecs' and 'term' (the sparse 'cols'
+    and 'len'), gathered alike."""
+    for key, arr in corpus.items():
+        if key not in _NON_GATHER_KEYS and getattr(arr, "ndim", 0) >= 1:
+            extra_sl[key] = take(arr)
+    return extra_sl
+
+
 def _row_pad(corpus: dict, ids: torch.Tensor, safe: torch.Tensor) -> torch.Tensor:
     """Row mask f32 like ``ids`` (+inf on padding and on ids < 0), without
     a gather: padding rows are exactly rows >= the real count. A gathered
@@ -115,7 +139,7 @@ def gather_rows(corpus: dict, ids: torch.Tensor):
     extra_sl = {}
     if corpus.get("term") is not None:
         extra_sl["x_term"] = corpus["term"][safe]
-    return rows, pad, extra_sl
+    return rows, pad, _gather_extra(corpus, extra_sl, lambda a: a[safe])
 
 
 def gather_row_groups(corpus: dict, gsel: torch.Tensor, group: int = 128):
@@ -141,7 +165,7 @@ def gather_row_groups(corpus: dict, gsel: torch.Tensor, group: int = 128):
     extra_sl = {}
     if corpus.get("term") is not None:
         extra_sl["x_term"] = expand(corpus["term"])
-    return rows, pad, extra_sl, cols
+    return rows, pad, _gather_extra(corpus, extra_sl, expand), cols
 
 
 def inject_term(space, rows, extra_sl: dict) -> dict:
@@ -174,6 +198,9 @@ def score_gathered(space, qenc: dict, rows, pad, extra_sl: dict) -> torch.Tensor
         if sx != 0.0 and "x_term" in extra_sl:
             s = s + sx * extra_sl["x_term"]
         return space.pass1_post(s, qenc) + pad
+    gb = getattr(space, "gathered_block", None)
+    if gb is not None:  # the sparse spaces' own scorer (ops/sparse.py)
+        return gb(qenc, rows, pad, extra_sl)
 
     b, kc = rows.shape[0], rows.shape[1]
     if b == 0:
@@ -192,8 +219,9 @@ def score_rows(space, qenc: dict, corpus: dict, ids: torch.Tensor) -> torch.Tens
     """Distances between query b and its own gathered candidate rows.
 
     ids: i32[B, K] corpus row indices (may be -1 / padding; those score +INF).
-    corpus: {'vecs': [N,D], 'count': n, optional 'term': [N]}.
-    Returns f32[B, K]."""
+    corpus: {'vecs': [N,D], 'count': n, optional 'term': [N], other per-row
+    tensors}. Returns f32[B, K]."""
+    qenc = densify_queries(space, qenc, corpus)
     rows, pad, extra_sl = gather_rows(corpus, ids)
     d = score_gathered(space, qenc, rows, pad, extra_sl)
     return torch.where(ids < 0, INF, d)
@@ -213,6 +241,7 @@ def greedy_descent(
     Per step: gather the current node's M neighbours, score, move to the
     best if it improves; stop when no query improves. The step runs for
     every query while any one moved in the step before, as in tpu_knn."""
+    qenc = densify_queries(space, qenc, corpus)
     cur, cur_d = start, start_d
     for _ in range(max_steps):
         counters["descent_steps"] += 1
@@ -261,6 +290,7 @@ def beam_search(
     _search_core). Only valid for spaces whose per-row term is
     recomputable from the row (or absent): the caller gates this.
     """
+    qenc = densify_queries(space, qenc, corpus)
     b = entry.shape[0]
     m = adj.shape[1]
     k_cand = expand * m

@@ -1,0 +1,363 @@
+"""Blocked sparse distance primitives over padded CSR (counterpart of
+tpu_knn/ops/sparse.py).
+
+The corpus is padded CSR: ``cols`` i32[N, nnz] ascending per row with
+1-based element ids, ``vals`` f32[N, nnz] (0 at padding). Query rows pad
+their ids with PAD_Q, corpus rows with PAD_X; the two sentinels differ and
+lie above every real id, so a padded slot never matches anything. Every
+distance factors through one of two lookups:
+
+  dot(q, x)      = sum_t  qval_at(x.col[t]) * x.val[t]
+  |A n B|        = sum_t  found(x.col[t])
+  sum_U |q-x|^p  = sum_t (|x.val[t] - qat|^p - |qat|^p) + sum_s |q.val[s]|^p
+
+(U the union of the supports, qat the query's value at x.col[t]).
+
+One formulation per primitive, the one that suits the card; tpu_knn
+ships others for reasons of its own (the TPU arm each matches is named):
+
+  * dot products and intersection counts of a query batch against corpus
+    rows look each corpus element up in a densified query table f32[V, Q]
+    (:func:`densify`, transposed so that one element's Q values are one
+    contiguous row) and contract over nnz with one batched product
+    (:func:`dot_qdense`, :func:`intersect_count_qdense`). tpu_knn's scan
+    does the same with a [Q, V] table (dot_qdense, SPARSE_SCAN_QDENSE).
+  * gathered candidates [B, K, nnz] (the graph's beam) look their elements
+    up in each query's own row of a [B, V] table (:func:`gathered_dot`,
+    :func:`gathered_found`). tpu_knn ships GATHER_SCORING="support", an
+    equality match against the query's support, because a gather inside a
+    TPU while_loop compiled to a 2.6 s fusion; the products and matches
+    are the same, and a gather is cheap here where torch would have to
+    materialize the support form's [B, K, nnz, T] mask.
+  * pairs of candidate rows (the construction heuristic) find each
+    a-side element in the sorted b-side row by binary search
+    (:func:`pair_lookup`) and add the products over the a-side
+    (:func:`row_dot`): no [*, V] table per candidate. tpu_knn ships
+    PAIR_BACKEND="support", an equality match in a fori_loop over the
+    a-side slots; on the CPU the port adds in that loop's order, one fused
+    multiply-add a slot, and equals it bit for bit.
+  * the union-of-supports Lp distances binary-search the corpus elements
+    in the sorted query rows (:func:`lookup_query_vals`, tpu_knn's
+    searchsorted lookup; the Lp spaces have no vocabulary gate there
+    either), and Linf also the query's elements in the corpus rows
+    (:func:`reverse_found`).
+  * the JL sketch densifies chunks of rows over the padded vocabulary and
+    multiplies them with R (:func:`sketch_csr`, SKETCH_BACKEND="densify").
+
+Every product runs at IEEE f32 (ops/distance.require_ieee_f32).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..utils.rng import jax_normal
+from .distance import block_elems, require_ieee_f32
+
+#: Column padding sentinels (see module docstring)
+PAD_Q = 2**31 - 1
+PAD_X = 2**31 - 2
+
+
+def densify(col: torch.Tensor, val: torch.Tensor, v_pad: int) -> torch.Tensor:
+    """Scatter padded-CSR rows into a dense f32[rows, v_pad] block. Ids are
+    1-based; ids above ``v_pad`` (the padding sentinels, or query ids beyond
+    the corpus vocabulary) land in a spare column that is cut off. Ids are
+    unique per row, so every kept cell is written once."""
+    r = col.shape[0]
+    out = torch.zeros((r, v_pad + 1), dtype=torch.float32, device=col.device)
+    idx = torch.where((col >= 1) & (col <= v_pad), col.long() - 1, v_pad)
+    out.scatter_(1, idx, val.float())
+    return out[:, :v_pad]
+
+
+def densify_t(col: torch.Tensor, val: torch.Tensor, v_pad: int) -> torch.Tensor:
+    """:func:`densify` transposed to f32[v_pad, rows], contiguous: the table
+    layout of :func:`dot_qdense`."""
+    return densify(col, val, v_pad).t().contiguous()
+
+
+def _row_blocks(n: int, per_row: int, dev: torch.device):
+    """Row ranges of at most ops/distance.block_elems / per_row rows."""
+    step = max(1, block_elems(dev) // max(per_row, 1))
+    return [(s, min(s + step, n)) for s in range(0, n, step)]
+
+
+def dot_qdense(qd_t: torch.Tensor, xcol: torch.Tensor, xval: torch.Tensor) -> torch.Tensor:
+    """Sparse dots f32[Q, C] of densified queries against CSR rows.
+
+    qd_t f32[V, Q] (:func:`densify_t` of the queries), xcol i32[C, nnz],
+    xval f32[C, nnz]. Each corpus element gathers its id's row of Q query
+    values; one batched product per row block then contracts over nnz.
+    Padded elements clamp to a real row, but their value is 0."""
+    require_ieee_f32(qd_t)
+    v, nq = qd_t.shape
+    c, nnz = xcol.shape
+    idx = (xcol.long() - 1).clamp_(0, v - 1)
+    out = torch.empty((c, nq), dtype=torch.float32, device=qd_t.device)
+    for s, e in _row_blocks(c, nnz * nq, qd_t.device):
+        g = qd_t[idx[s:e].reshape(-1)].view(e - s, nnz, nq)
+        out[s:e] = torch.bmm(xval[s:e, None, :].float(), g)[:, 0]
+    return out.t()
+
+
+def real_slots(col: torch.Tensor) -> torch.Tensor:
+    """1.0 at the slots of real elements, 0.0 at padding (either sentinel)."""
+    return ((col >= 1) & (col < PAD_X)).float()
+
+
+def intersect_count_qdense(qp_t: torch.Tensor, xcol: torch.Tensor) -> torch.Tensor:
+    """|A n B| f32[Q, C] against a densified query *presence* table
+    f32[V, Q] (1.0 at the query's ids). Padded corpus slots clamp to a real
+    row, so they are masked by their weight, not by the table."""
+    return dot_qdense(qp_t, xcol, real_slots(xcol))
+
+
+def gathered_dot(qd: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """dot[b, k] = sum_j qd[b, cols[b,k,j]] * vals[b,k,j]: each query's
+    candidate rows [B, K, nnz] against its own row of a densified table
+    f32[B, V]. Padded slots carry value 0."""
+    b, k, nnz = cols.shape
+    v = qd.shape[1]
+    idx = (cols.reshape(b, k * nnz).long() - 1).clamp_(0, v - 1)
+    q = torch.gather(qd, 1, idx).view(b, k, nnz)
+    return row_dot(q, vals)
+
+
+def gathered_found(qp: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """|A n B| f32[B, K] of each query against its own candidate rows, from
+    a presence table f32[B, V]; padded slots masked explicitly."""
+    return gathered_dot(qp, cols, real_slots(cols))
+
+
+def _search(seq: torch.Tensor, targets: torch.Tensor):
+    """For each target (sorted ``seq`` [*L, n], targets [*L, m]): the
+    position of its equal element in ``seq`` clamped into range, and
+    whether it is there (jnp.searchsorted side='left' as tpu_knn's
+    _bsearch_first_geq)."""
+    pos = torch.searchsorted(seq, targets, out_int32=True).clamp_(max=seq.shape[-1] - 1).long()
+    return pos, torch.gather(seq, -1, pos) == targets
+
+
+def lookup_query_vals(qcol: torch.Tensor, qval: torch.Tensor, xcol: torch.Tensor):
+    """The query's value at each corpus element, and whether the query has
+    that id: (vals f32, found bool), both shaped like ``xcol`` with the
+    query axis in front where the rows are shared.
+
+    Two layouts: a query batch against shared corpus rows (qcol [Q, T],
+    xcol [C, nnz] -> [Q, C, nnz]), and each query against its own
+    candidates (qcol [B, T], xcol [B, K, nnz] -> [B, K, nnz]). Values are 0
+    where not found."""
+    if xcol.ndim == 2:
+        q, (c, nnz) = qcol.shape[0], xcol.shape
+        targets = xcol.reshape(1, c * nnz).expand(q, c * nnz).contiguous()
+        out_shape = (q, c, nnz)
+    else:
+        b, k, nnz = xcol.shape
+        targets = xcol.reshape(b, k * nnz)
+        out_shape = (b, k, nnz)
+    pos, found = _search(qcol, targets)
+    vals = torch.where(found, torch.gather(qval, -1, pos), 0.0)
+    return vals.view(out_shape), found.view(out_shape)
+
+
+def lookup_dot_blocked(qcol, qval, xcol, xval) -> torch.Tensor:
+    """Dots f32[Q, C] of a query batch against shared corpus rows through
+    the binary-search lookup (a corpus without the vocabulary gate), in
+    row blocks that bound the [Q, C, nnz] lookup. With unit query values
+    and :func:`real_slots` as ``xval`` it counts the intersections."""
+    nq, (c, nnz) = qcol.shape[0], xcol.shape
+    out = torch.empty((nq, c), dtype=torch.float32, device=xcol.device)
+    for s, e in _row_blocks(c, nq * nnz * 4, xcol.device):
+        vals, _ = lookup_query_vals(qcol, qval, xcol[s:e])
+        out[:, s:e] = torch.sum(vals * xval[None, s:e], dim=-1)
+    return out
+
+
+def reverse_found(qcol: torch.Tensor, xcol: torch.Tensor) -> torch.Tensor:
+    """found[i, j, s]: does corpus row j hold query i's element s. Layouts
+    as :func:`lookup_query_vals`: [Q, C, T] for shared rows, [B, K, T] for
+    each query's own candidates."""
+    if xcol.ndim == 2:
+        q, t = qcol.shape
+        c = xcol.shape[0]
+        _, found = _search(xcol, qcol.reshape(1, q * t).expand(c, q * t).contiguous())
+        return found.view(c, q, t).transpose(0, 1)
+    b, k, _ = xcol.shape
+    _, found = _search(xcol, qcol[:, None, :].expand(b, k, qcol.shape[1]).contiguous())
+    return found
+
+
+def lp_union(vals, found, xval, p: float, q_pterm):
+    """sum over the union of supports of |q_t - x_t|^p from a lookup
+    (``vals``/``found`` of :func:`lookup_query_vals`, ``xval`` broadcast
+    like them, ``q_pterm`` the per-query sum of |q|^p with the query axis
+    first). Padded slots give |0 - 0|^p = 0."""
+    ax = torch.abs(xval - vals)
+    d = torch.where(ax > 0, ax**p, 0.0)
+    qq = torch.where(found, torch.abs(vals) ** p, 0.0)
+    return torch.sum(d - qq, dim=-1) + q_pterm
+
+
+def linf_union(vals, xval, rfound, qval):
+    """max over the union of supports of |q_t - x_t|: the corpus support
+    through the lookup, the query-only ids (``rfound`` False) as |q_s|.
+    ``qval`` is broadcast like ``rfound``."""
+    m_x = torch.amax(torch.abs(xval - vals), dim=-1)
+    m_q = torch.amax(torch.where(rfound, 0.0, torch.abs(qval)), dim=-1)
+    return torch.maximum(m_x, m_q)
+
+
+def lp_union_blocked(qcol, qval, xcol, xval, p: float, q_pterm):
+    """Lp^p over the union of supports, f32[Q, C] (shared rows) or [B, K]
+    (own candidates); row blocks bound the [Q, C, nnz] lookup."""
+    if xcol.ndim == 3:
+        vals, found = lookup_query_vals(qcol, qval, xcol)
+        return lp_union(vals, found, xval, p, q_pterm[:, None])
+    nq, (c, nnz) = qcol.shape[0], xcol.shape
+    outs = []
+    for s, e in _row_blocks(c, nq * nnz * 4, xcol.device):
+        vals, found = lookup_query_vals(qcol, qval, xcol[s:e])
+        outs.append(lp_union(vals, found, xval[None, s:e], p, q_pterm[:, None]))
+    return torch.cat(outs, dim=1) if outs else qval.new_zeros((nq, 0))
+
+
+def linf_union_blocked(qcol, qval, xcol, xval):
+    """Linf over the union of supports, layouts as :func:`lp_union_blocked`."""
+    if xcol.ndim == 3:
+        vals, _ = lookup_query_vals(qcol, qval, xcol)
+        rfound = reverse_found(qcol, xcol)
+        return linf_union(vals, xval, rfound, qval[:, None, :])
+    nq, (c, nnz) = qcol.shape[0], xcol.shape
+    outs = []
+    for s, e in _row_blocks(c, nq * (nnz + qcol.shape[1]) * 4, xcol.device):
+        vals, _ = lookup_query_vals(qcol, qval, xcol[s:e])
+        rfound = reverse_found(qcol, xcol[s:e])
+        outs.append(linf_union(vals, xval[None, s:e], rfound, qval[:, None, :]))
+    return torch.cat(outs, dim=1) if outs else qval.new_zeros((nq, 0))
+
+
+def pair_lookup(acol, aval, bcol, bval):
+    """For pairs of candidate rows of each batch row (a-side [B, C, nnz_a],
+    b-side [B, C2, nnz_b], both sorted): the b-side value matching each
+    a-side element, 0 where b lacks it, and whether it was found, both
+    f32/bool[B, C, C2, nnz_a]."""
+    b, c, na = acol.shape
+    c2 = bcol.shape[1]
+    targets = acol.reshape(b, 1, c * na).expand(b, c2, c * na).contiguous()
+    pos, found = _search(bcol, targets)  # [B, C2, C*na]
+    bv = torch.where(found, torch.gather(bval, -1, pos), 0.0)
+    shape = (b, c2, c, na)
+    return bv.view(shape).transpose(1, 2), found.view(shape).transpose(1, 2)
+
+
+def _seq_sum(a, m) -> torch.Tensor:
+    """sum_i a[..., i] * m[..., i], added in slot order from 0 with one
+    fused multiply-add a slot (``addcmul`` rounds once)."""
+    acc = torch.zeros(m.shape[:-1], dtype=torch.float32, device=m.device)
+    for i in range(m.shape[-1]):
+        acc = torch.addcmul(acc, a[..., i], m[..., i])
+    return acc
+
+
+def pair_dots(acol, aval, bcol, bval) -> torch.Tensor:
+    """Pairwise dots [B, C, C2] of per-row candidate sets (a gram matrix
+    when both sides are the same candidates), in row blocks."""
+    b, c, na = acol.shape
+    c2 = bcol.shape[1]
+    out = torch.empty((b, c, c2), dtype=torch.float32, device=acol.device)
+    for s, e in _row_blocks(b, c * c2 * na * 4, acol.device):
+        bv, _ = pair_lookup(acol[s:e], aval[s:e], bcol[s:e], bval[s:e])
+        out[s:e] = row_dot(aval[s:e, :, None, :].float(), bv)
+    return out
+
+
+def pair_intersect(acol, bcol) -> torch.Tensor:
+    """Pairwise |A n B| [B, C, C2] of per-row candidate sets (padding never
+    matches: the a-side's real-slot weight masks it)."""
+    b, c, na = acol.shape
+    c2 = bcol.shape[1]
+    areal = real_slots(acol)
+    out = torch.empty((b, c, c2), dtype=torch.float32, device=acol.device)
+    for s, e in _row_blocks(b, c * c2 * na * 4, acol.device):
+        _, found = pair_lookup(acol[s:e], areal[s:e], bcol[s:e], real_slots(bcol[s:e]))
+        out[s:e] = row_dot(areal[s:e, :, None, :], found.float())
+    return out
+
+
+def pair_lp(acol, aval, bcol, bval, p: float, a_pterm) -> torch.Tensor:
+    """Pairwise Lp^p over the union of supports [B, C, C2]: the a-side plays
+    the query (its per-row |a|^p sums ``a_pterm`` [B, C])."""
+    b, c, _ = acol.shape
+    c2, nb = bcol.shape[1], bcol.shape[2]
+    out = torch.empty((b, c, c2), dtype=torch.float32, device=acol.device)
+    for s, e in _row_blocks(b, c * c2 * nb * 4, acol.device):
+        # the b-side elements looked up in the a-side rows
+        av, found = pair_lookup(bcol[s:e], bval[s:e], acol[s:e], aval[s:e])  # [B, C2, C, nb]
+        xv = bval[s:e, :, None, :]
+        out[s:e] = lp_union(av, found, xv, p, a_pterm[s:e, None, :]).transpose(1, 2)
+    return out
+
+
+def pair_linf(acol, aval, bcol, bval) -> torch.Tensor:
+    """Pairwise Linf over the union of supports [B, C, C2]."""
+    b, c, na = acol.shape
+    c2, nb = bcol.shape[1], bcol.shape[2]
+    out = torch.empty((b, c, c2), dtype=torch.float32, device=acol.device)
+    for s, e in _row_blocks(b, c * c2 * (na + nb) * 4, acol.device):
+        av, _ = pair_lookup(bcol[s:e], bval[s:e], acol[s:e], aval[s:e])  # [B, C2, C, nb]
+        _, rfound = pair_lookup(acol[s:e], aval[s:e], bcol[s:e], bval[s:e])  # [B, C, C2, na]
+        m_x = torch.amax(torch.abs(bval[s:e, :, None, :] - av), dim=-1).transpose(1, 2)
+        m_q = torch.amax(torch.where(rfound, 0.0, torch.abs(aval[s:e, :, None, :])), dim=-1)
+        out[s:e] = torch.maximum(m_x, m_q)
+    return out
+
+
+def row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum over the last axis of a * b in f32 (broadcast). On the CPU one
+    fused multiply-add a slot, in slot order: the order of tpu_knn's
+    fori_loop over the a-side slots of a pair dot (XLA contracts it into
+    FMAs), and the order XLA's CPU code gives its short reductions over
+    nnz (16 and 24 slots checked), so the scores there, and the graphs
+    built on them, equal tpu_knn's. On the card one reduction kernel: the
+    same products summed in another order, where a slot loop would add nnz
+    launches to every beam step and pair block."""
+    if a.device.type != "cpu":
+        return torch.sum(a * b, dim=-1)
+    return _seq_sum(a, b)
+
+
+def norms_from_vals(vals: torch.Tensor) -> torch.Tensor:
+    """Row L2 norms of padded CSR values (padding is 0)."""
+    return torch.sqrt(row_dot(vals, vals))
+
+
+def jaccard_from_counts(inter, alen, blen):
+    """1 - |A n B| / |A u B| from an intersection count and the two
+    support sizes (broadcast); 0 where both sets are empty."""
+    union = alen + blen - inter
+    return torch.where(union > 0, 1.0 - inter / torch.clamp_min(union, 1.0), 0.0)
+
+
+def sketch_matrix(v_pad: int, dsk: int, seed: int, device="cpu") -> torch.Tensor:
+    """Seeded Gaussian random-projection matrix f32[v_pad, dsk], scaled
+    1/sqrt(dsk) so E[<Rq, Rx>] = <q, x> (Johnson-Lindenstrauss): the matrix
+    tpu_knn draws, jax.random.normal(PRNGKey(uint32(seed)), (v_pad, dsk))
+    / sqrt(dsk), drawn without jax (utils/rng.py jax_normal). A saved index
+    stores only the seed; the matrix is drawn again on load."""
+    return jax_normal(seed, (v_pad, dsk), device) * (1.0 / dsk**0.5)
+
+
+def sketch_csr(col, val, r_mat: torch.Tensor, chunk: int = 2048) -> torch.Tensor:
+    """Project padded-CSR rows through R: f32[N, dsk]. Each chunk of rows is
+    densified over the padded vocabulary and multiplied with R once; the
+    transient [chunk, v_pad] block bounds memory. ``val`` carries any
+    per-space normalization (unit rows for the cosine family, presence
+    indicators for jaccard)."""
+    require_ieee_f32(r_mat)
+    n = col.shape[0]
+    v_pad = r_mat.shape[0]
+    out = torch.empty((n, r_mat.shape[1]), dtype=torch.float32, device=r_mat.device)
+    for s in range(0, n, chunk):
+        out[s:s + chunk] = densify(col[s:s + chunk], val[s:s + chunk], v_pad) @ r_mat
+    return out
