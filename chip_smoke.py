@@ -166,6 +166,36 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     drawn on the card against R drawn on the CPU, whether the native
     pack_csr built. No kernel lies on this path: torch ops, as they are XLA
     ops in tpu_knn.
+19. bits, word_embed, NAPP and the inverted index: (a) [bits] SimHash
+    codes of phase 4's rows (signs of a seeded [128, 256] Gaussian
+    projection, 256 bits packed to uint32 words) through
+    add_bit_batch_packed, 1,000,000 codes, 2048 queries, k=10: bit_hamming
+    on the two-pass route (the f32 group-min kernel on the 0/1 rows,
+    launched, bit-equal to its plain version, timed against it and its
+    bound at D=256) with the median of 5 and its stage split, distances
+    equal to an exact integer popcount oracle and every returned id's
+    popcount(q XOR x) its distance; bit_jaccard (block route, median of 3)
+    against a float64 oracle; (b) [embed] word_embed over 20,000
+    glove_like(20_256, 100, seed=0) rows written as "w<i> v1 ... v100"
+    lines, 256 queries as bare words of the preloaded file, dist l2 and
+    cosine on seq_search and HNSW (M=16, efConstruction=100), results equal
+    to Index("l2")/Index("cosinesimil") over the parsed vectors and after
+    save/load of the string store; (c) [napp] NAPP on phase 18 (a)'s
+    100,000 rows and 512 queries (numPivot=512, numPrefix=32, minTimes 2-4,
+    invProcAlg scan and gather): build seconds and peak, recall@10 against
+    the exact scan (>= 0.95 at minTimes=2 on the scan route), qps and
+    dist_comps; (d) NAPP over phase 4's 1M rows (l2, minTimes=2) against
+    phase 4's exact ids (recall >= 0.95), and a 20,000-row range with every
+    row a candidate equal to seq_search's; (e) [invindx] simple_invindx
+    over phase 18 (c)'s 1M rows under negdotprod_sparse_fast at 1, 32 and
+    512 queries: ms a batch, touched documents, peak memory, ids equal to
+    the exact scan's except on ties, two calls equal and a reversed batch
+    the same bits. Each new space and method is saved (save_data True and
+    False) and loaded on the card with bit-identical results: 20,000-code
+    indexes of both bit spaces, (c)'s NAPP index on the gather route,
+    (d)'s 20,000-row NAPP index and a 100,000-row simple_invindx. Only
+    (a)'s bit_hamming runs a kernel; the rest is torch ops, as it is XLA
+    ops in tpu_knn.
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -2260,6 +2290,420 @@ def _phase_sparse(smi):
     return out
 
 
+# ---------------- phase 19: bits, word_embed, NAPP and the inverted index ----------------
+
+
+def _popcount32(v):
+    """Set bits of each 32-bit word of an int tensor (SWAR, in int64)."""
+    import torch
+
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) & 0xFFFFFFFF) >> 24
+
+
+def _unpack_words(w):
+    """0/1 float64 rows [n, 32 * words] of packed words int32 [n, words] on
+    the card (bit j of word i = element 32i+j), for the oracle."""
+    import torch
+
+    shifts = torch.arange(32, device=w.device, dtype=torch.int64)
+    return ((w.to(torch.int64)[:, :, None] >> shifts) & 1).reshape(w.shape[0], -1).double()
+
+
+def _bit_oracle(qw, xw, k: int, chunk: int = 65536):
+    """The k smallest exact Hamming distances (int64 [Q, k], ascending) and
+    the k smallest Jaccard distances in float64 ([Q, k]) of the packed
+    queries ``qw`` to the packed rows ``xw``: hamming = popcount(q) +
+    popcount(x) - 2 popcount(q AND x), popcount(q AND x) an exact integer
+    product of the 0/1 rows in float64 (sums <= 256)."""
+    import torch
+
+    pq = _popcount32(qw).sum(1).double()
+    qb = _unpack_words(qw)
+    hs, js = [], []
+    for c0 in range(0, xw.shape[0], chunk):
+        xc = xw[c0:c0 + chunk]
+        inter = qb @ _unpack_words(xc).T
+        px = _popcount32(xc).sum(1).double()
+        union = pq[:, None] + px[None, :] - inter
+        ham = union - inter
+        jac = torch.where(union > 0, 1.0 - inter / torch.clamp_min(union, 1.0), 0.0)
+        hs.append(torch.topk(ham, k, dim=1, largest=False).values)
+        js.append(torch.topk(jac, k, dim=1, largest=False).values)
+    ham = torch.topk(torch.cat(hs, 1), k, dim=1, largest=False).values
+    jac = torch.topk(torch.cat(js, 1), k, dim=1, largest=False).values
+    return ham.round().long().cpu().numpy(), jac.cpu().numpy()
+
+
+def _same_after_save_load(label, idx, pts, k: int, query_params=None):
+    """Save ``idx`` with save_data True and False, load each on the card
+    and require knn_query_batch results bit-identical to the index's."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpu_knn_torch import Index
+
+    d0, i0 = idx.knn_query_batch(pts, k)
+    tmp = tempfile.mkdtemp(prefix="tk_p19_")
+    try:
+        for save_data in (True, False):
+            path = os.path.join(tmp, f"ix{int(save_data)}")
+            idx.save(path, save_data=save_data)
+            ld = Index.load(path, device="cuda")
+            if query_params is not None:
+                ld.set_query_time_params(query_params)
+            d1, i1 = ld.knn_query_batch(pts, k)
+            _require(np.array_equal(d0, d1) and np.array_equal(i0, i1),
+                     lambda: f"{label}: results changed after save_data={save_data} and load")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[save/load] {label}: save_data True and False, loaded on the card: results bit-identical", flush=True)
+
+
+def _phase_bits(smi, corpus, queries):
+    """(a) SimHash codes of phase 4's rows: bit_hamming (two-pass, the f32
+    group-min kernel on the 0/1 rows) and bit_jaccard (block route) over
+    1,000,000 codes of 256 bits, 2048 queries, k=10, against exact integer
+    and float64 oracles. Returns the numbers it printed."""
+    import torch
+    from tpu_knn_torch import Index
+    from tpu_knn_torch.methods import seq_search as SS
+    from tpu_knn_torch.ops import groupmin as GM
+    from tpu_knn_torch.spaces.bits import unpack_bit_vectors
+
+    out = {}
+    nq, k = queries.shape[0], K
+    th = time.perf_counter()
+    proj = np.random.default_rng(0).standard_normal((DIM, 256)).astype(np.float32)
+
+    def simhash(x):  # bit j of word i = element 32i+j
+        return np.packbits((x @ proj) > 0, axis=1, bitorder="little").view("<u4")
+
+    wc, wq = simhash(corpus), simhash(queries)
+    qbits = unpack_bit_vectors(wq)
+    xw = torch.from_numpy(wc.view(np.int32)).cuda()
+    qw = torch.from_numpy(wq.view(np.int32)).cuda()
+    t_or = time.perf_counter()
+    ham_k, jac_k = _bit_oracle(qw, xw, k)
+    torch.cuda.synchronize()
+    oracle_s = time.perf_counter() - t_or
+    print(f"[bits] data: SimHash of sift_like rows by a seeded [128, 256] Gaussian projection, {wc.shape[0]} codes of "
+          f"256 bits ({wc.shape[1]} uint32 words a row), {nq} queries, in {t_or - th:.2f} s; oracle {oracle_s:.2f} s",
+          flush=True)
+
+    ix = Index("bit_hamming", method="seq_search", data_type="dense_uint8_vector", dist_type="int", device="cuda")
+    tb = time.perf_counter()
+    ix.add_bit_batch_packed(wc)
+    ix.build_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    GM.reset_launches()
+    d, i = ix.knn_query_batch(qbits, k)
+    launched = dict(GM.launches)
+    route = ix.method.last_route
+    _require(route == "twopass" and launched["float32"] > 0 and ix.method.data.vecs.dtype == torch.float32
+             and launched["int8"] == 0, lambda: f"bit_hamming: route {route}, launches {launched}")
+    med, d, i = _timed_knn(ix, qbits, k, 5, statistics.median)
+    stages, qenc = _breakdown(ix, qbits, k)
+    # exactness: the returned distances are the k smallest exact ones, and
+    # each returned id's popcount(q XOR x) is its returned distance
+    _require(np.array_equal(d.astype(np.int64), ham_k),
+             lambda: f"bit_hamming: {int((d.astype(np.int64) != ham_k).sum())} distances off the popcount oracle")
+    pos = torch.from_numpy(i.astype(np.int64)).cuda()
+    xor = _popcount32(torch.bitwise_xor(qw[:, None, :], xw[pos])).sum(2).cpu().numpy()
+    _require(bool((i >= 0).all()) and np.array_equal(xor, d.astype(np.int64)),
+             lambda: "bit_hamming: a returned id's popcount(q XOR x) is not its distance")
+    # the kernel at D=256 against its plain version on the same inputs
+    data = ix.method.data
+    q, qt, xt, scale = SS._kernel_inputs(ix.space, qenc, data)
+    mins = GM.fused_groupmin(q, data.vecs, qt, xt, scale)
+    ref = GM.fused_groupmin_reference(q, data.vecs, qt, xt, scale)
+    kerr = float((mins - ref).abs().max())
+    _require(kerr == 0.0, lambda: f"groupmin_f32 on 0/1 rows: max |kernel - plain| {kerr} (integers expected)")
+    kms = _cuda_ms(lambda: GM.fused_groupmin(q, data.vecs, qt, xt, scale), 5)
+    pms = _cuda_ms(lambda: GM.fused_groupmin_reference(q, data.vecs, qt, xt, scale), 2)
+    bms, bby = _bound_ms("float32", q, data.vecs)
+    out["hamming"] = {"ms": med * 1e3, "qps": nq / med, "build_s": build_s, "launches": launched["float32"],
+                      "kernel_ms": kms, "plain_ms": pms, "bound_ms": bms, "bound_by": bby, "stages_ms": stages}
+    print(f"[bits] (a) bit_hamming {data.count} rows x {data.vecs.shape[1]} columns, {nq} queries, k={k}: add + "
+          f"encode {build_s:.2f} s, route {route}, median of 5 {med * 1e3:.3f} ms ({nq / med:.0f} qps); stages "
+          f"(CUDA events, mean of 5) " + ", ".join(f"{s} {v:.3f} ms" for s, v in stages.items())
+          + f"; groupmin_f32 launches {launched['float32']} (other tiers {launched['int8']}/{launched['high']}/"
+          f"{launched['bfloat16']}); kernel {kms:.3f} ms against plain {pms:.3f} ms, bound {bms:.3f} ms ({bby}), "
+          f"share {bms / kms:.1%}, max |kernel - plain| {kerr}; distances equal to the popcount oracle, every id's "
+          f"popcount(q XOR x) its distance; {smi}", flush=True)
+    del ix, data, q, qenc
+    torch.cuda.empty_cache()
+
+    jx = Index("bit_jaccard", method="seq_search", data_type="dense_uint8_vector", dist_type="float", device="cuda")
+    tb = time.perf_counter()
+    jx.add_bit_batch_packed(wc)
+    jx.build_index()
+    torch.cuda.synchronize()
+    jbuild = time.perf_counter() - tb
+    GM.reset_launches()
+    medj, dj, ij = _timed_knn(jx, qbits, k, 3, statistics.median)
+    jl = sum(GM.launches.values())
+    _require(jx.method.last_route == "twopass" and jl == 0,
+             lambda: f"bit_jaccard: route {jx.method.last_route}, group-min launches {jl} (no affine form)")
+    # each returned id's f64 Jaccard distance, and the f32 bound of 1 - a/b
+    pos = torch.from_numpy(ij.astype(np.int64)).cuda()
+    qb, xb = _unpack_words(qw), _unpack_words(xw[pos.reshape(-1)]).reshape(nq, k, -1)
+    inter = torch.einsum("qd,qkd->qk", qb, xb)
+    union = qb.sum(1)[:, None] + xb.sum(2) - inter
+    got64 = torch.where(union > 0, 1.0 - inter / torch.clamp_min(union, 1.0), 0.0).cpu().numpy()
+    bound = 4 * U
+    derr = float(np.abs(dj - got64).max())
+    _require(derr <= bound, lambda: f"bit_jaccard: a distance off its id's f64 value by {derr}")
+    tie_err = float(np.abs(np.sort(got64, 1) - jac_k).max())
+    _require(tie_err <= 2 * bound, lambda: f"bit_jaccard: ids not a top-{k} of the f64 oracle ({tie_err})")
+    out["jaccard"] = {"ms": medj * 1e3, "qps": nq / medj, "build_s": jbuild}
+    print(f"[bits] (a) bit_jaccard same codes: add + encode {jbuild:.2f} s, route {jx.method.last_route} (block "
+          f"scan, no kernel launch), median of 3 {medj * 1e3:.3f} ms ({nq / medj:.0f} qps); max |dist - f64| "
+          f"{derr:.3g}, the returned ids a top-{k} of the f64 oracle up to ties within 2x the f32 bound; {smi}",
+          flush=True)
+    del jx
+    for name, dt in (("bit_hamming", "int"), ("bit_jaccard", "float")):
+        sx = Index(name, method="seq_search", data_type="dense_uint8_vector", dist_type=dt, device="cuda")
+        sx.add_bit_batch_packed(wc[:20_000])
+        _same_after_save_load(f"(a) {name} over 20,000 codes", sx, qbits[:256], k)
+    return out
+
+
+def _phase_embed(smi):
+    """(b) word_embed over 20,000 glove_like(20_256, 100, seed=0) rows
+    written as "w<i> v1 ... v100" lines (%.9g), 256 queries as bare words
+    of the preloaded file: dist=l2 and dist=cosine on seq_search and on
+    HNSW, equal to Index("l2") / Index("cosinesimil") over the parsed
+    vectors, and after save/load of the string store. Returns the numbers
+    it printed."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval.datasets import glove_like
+    from tpu_knn_torch.spaces.embed import parse_embed_line
+
+    n, nq, k = 20_000, 256, K
+    g = glove_like(n + nq, 100, seed=0)
+    lines = [f"w{r} " + " ".join("%.9g" % v for v in row) for r, row in enumerate(g)]
+    vecs = np.stack([parse_embed_line(ln)[1] for ln in lines])
+    _require(np.array_equal(vecs, g), lambda: "%.9g lines do not parse back to the same f32 vectors")
+    words = [f"w{r}" for r in range(n, n + nq)]
+    build = Params(M=16, efConstruction=100, waveSize=1024)
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="tk_embed_")
+    try:
+        path = os.path.join(tmp, "glove.txt")
+        with open(path, "w", encoding="utf-8") as f:
+            f.write("\n".join(lines) + "\n")
+        for dist, inner in (("l2", "l2"), ("cosine", "cosinesimil")):
+            for method in ("seq_search", "hnsw"):
+                tb = time.perf_counter()
+                we = Index("word_embed", Params(dist=dist, file=path), method=method, data_type="object_as_string",
+                           device="cuda")
+                we.add_string_batch(lines[:n])
+                we.build_index(build if method == "hnsw" else None)
+                torch.cuda.synchronize()
+                bs = time.perf_counter() - tb
+                pl = Index(inner, Params(dim=100), method=method, device="cuda")
+                pl.add_dense_batch(vecs[:n])
+                pl.build_index(build if method == "hnsw" else None)
+                if method == "hnsw":
+                    same_graph = torch.equal(we.method.graph["level0"], pl.method.graph["level0"])
+                    _require(same_graph, lambda: f"word_embed {dist} hnsw: level 0 differs from {inner}'s")
+                    for ix in (we, pl):
+                        ix.set_query_time_params(Params(efSearch=100))
+                d1, i1 = we.knn_query_batch(words, k)
+                d2, i2 = pl.knn_query_batch(vecs[n:], k)
+                _require(np.array_equal(d1, d2) and np.array_equal(i1, i2),
+                         lambda: f"word_embed {dist} {method}: results differ from {inner} over the parsed vectors")
+                sp = os.path.join(tmp, f"{dist}_{method}")
+                we.save(sp)
+                ld = Index.load(sp, device="cuda")
+                if method == "hnsw":
+                    ld.set_query_time_params(Params(efSearch=100))
+                d3, i3 = ld.knn_query_batch(words, k)
+                _require(np.array_equal(d1, d3) and np.array_equal(i1, i3) and ld.borrow_data_point_string(7) == lines[7],
+                         lambda: f"word_embed {dist} {method}: results changed after save/load")
+                out[f"{dist}_{method}"] = {"build_s": bs}
+                print(f"[embed] (b) word_embed dist={dist} {method} {n} lines, {nq} bare-word queries: add + build "
+                      f"{bs:.2f} s; results equal to {inner} over the parsed vectors"
+                      + (" (level 0 equal)" if method == "hnsw" else "")
+                      + f", and after save/load of the string store; {smi}", flush=True)
+                del we, pl, ld
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _phase_napp(smi, corpus, queries, i10):
+    """(c) NAPP on bench.py's config 5 (the 100,000 sparse_like rows and 512
+    queries of phase 18 (a), cosinesimil_sparse), numPivot=512,
+    numPrefix=32, minTimes 2-4 on both invProcAlg routes; (d) NAPP over
+    phase 4's 1,000,000 rows (l2, minTimes=2, 2048 queries) against phase
+    4's exact ids, and at 20,000 rows a range query with every row a
+    candidate against seq_search's. Returns the numbers it printed."""
+    import torch
+    from tpu_knn_torch import DataKind, Index, Params
+    from tpu_knn_torch.eval.datasets import sparse_like
+
+    out = {"config5": {}}
+    k = K
+    n, nq = 100_000, 512
+    pts = sparse_like(n + 2048, vocab=30_000, nnz=64, seed=0)
+    c5, q5 = pts[:n], pts[n:n + nq]
+    ex = Index("cosinesimil_sparse", method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+    ex.add_sparse_batch(c5, ids=range(n))
+    _, gold = ex.knn_query_batch(q5, k)
+    del ex
+    nx = Index("cosinesimil_sparse", method="napp", data_type=DataKind.SPARSE, device="cuda")
+    nx.add_sparse_batch(c5, ids=range(n))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    nx.build_index(Params(numPivot=512, numPrefix=32))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[napp] (c) cosinesimil_sparse {n} rows (config 5), numPivot=512 numPrefix=32: build {build_s:.2f} s, "
+          f"peak allocated {peak:.3f} GiB, chunk {nx.method._chunk} (scan chunk {nx.method._scan_chunk}); {smi}",
+          flush=True)
+    out["config5"]["build_s"], out["config5"]["peak_gib"] = build_s, peak
+    for mt in (2, 3, 4):
+        for alg in ("scan", "gather"):
+            nx.set_query_time_params(Params(minTimes=mt, invProcAlg=alg))
+            nx.method.dist_comps = 0
+            _, ig = nx.knn_query_batch(q5, k)
+            dc = nx.method.dist_comps / nq
+            med, _, ig = _timed_knn(nx, q5, k, 3, statistics.median)
+            rec = _recall_at(ig, gold, k)
+            out["config5"][f"{alg}_{mt}"] = {"recall": rec, "qps": nq / med, "dist_comps": dc}
+            print(f"[napp] (c) minTimes={mt} invProcAlg={alg}: recall@{k} {rec:.4f} against the exact scan, median "
+                  f"of 3 {med * 1e3:.2f} ms ({nq / med:.0f} qps), dist_comps {dc:.1f} a query; {smi}", flush=True)
+    rec2 = out["config5"]["scan_2"]["recall"]
+    _require(rec2 >= 0.95, lambda: f"napp config 5: recall@10 {rec2} at minTimes=2 (scan) below 0.95")
+    gather = Params(minTimes=2, invProcAlg="gather")
+    nx.set_query_time_params(gather)
+    _same_after_save_load("(c) napp config 5, the gather route", nx, q5, k, gather)
+    del nx, pts, c5, q5
+    torch.cuda.empty_cache()
+
+    # ---- (d) 1M dense rows ----
+    nqd = queries.shape[0]
+    dx = Index("l2", Params(dim=DIM), method="napp", device="cuda")
+    dx.add_dense_batch(corpus)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    dx.build_index(Params(numPivot=512, numPrefix=32))
+    torch.cuda.synchronize()
+    dbuild = time.perf_counter() - tb
+    dpeak = torch.cuda.max_memory_allocated() / 2**30
+    dx.set_query_time_params(Params(minTimes=2))
+    dx.method.dist_comps = 0
+    dx.knn_query_batch(queries, k)
+    ddc = dx.method.dist_comps / nqd
+    med, dd, idd = _timed_knn(dx, queries, k, 3, statistics.median)
+    rec = _recall_at(idd, i10, k)
+    out["dense_1m"] = {"build_s": dbuild, "peak_gib": dpeak, "recall": rec, "qps": nqd / med, "dist_comps": ddc}
+    print(f"[napp] (d) l2 {corpus.shape[0]} rows, numPivot=512 numPrefix=32 minTimes=2, {nqd} queries: build "
+          f"{dbuild:.2f} s, peak allocated {dpeak:.3f} GiB, median of 3 {med * 1e3:.2f} ms ({nqd / med:.0f} qps), "
+          f"recall@{k} {rec:.4f} against phase 4's exact ids, dist_comps {ddc:.0f} a query; {smi}", flush=True)
+    _require(rec >= 0.95, lambda: f"napp 1M: recall@10 {rec} below 0.95")
+    del dx
+    torch.cuda.empty_cache()
+
+    # ---- (d) range with every row a candidate equals the exact range ----
+    n2, nq2 = 20_000, 256
+    rx = Index("l2", Params(dim=DIM), method="napp", device="cuda")
+    rx.add_dense_batch(corpus[:n2])
+    rx.build_index(Params(numPivot=32, numPrefix=32))
+    rx.set_query_time_params(Params(numPrefixSearch=32, minTimes=1))
+    sx = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    sx.add_dense_batch(corpus[:n2])
+    d2, _ = sx.knn_query_batch(queries[:nq2], k)
+    radius = float(np.median(d2[:, -1]))
+    got, want = rx.range_query_batch(queries[:nq2], radius), sx.range_query_batch(queries[:nq2], radius)
+    same = all(set(a.ids) == set(b.ids) for a, b in zip(got, want))
+    hits = sum(len(b.ids) for b in want)
+    _require(same, lambda: "napp range with every row a candidate differs from seq_search's")
+    print(f"[napp] (d) range {n2} rows, numPivot = numPrefix = numPrefixSearch = 32, minTimes=1, {nq2} queries at "
+          f"radius {radius:.6g}: {hits} hits, id sets equal to seq_search's for every query", flush=True)
+    rx.set_query_time_params(None)
+    _same_after_save_load(f"(d) napp l2 over {n2} rows", rx, queries[:nq2], k)
+    out["range_hits"] = hits
+    return out
+
+
+def _phase_invindx(smi):
+    """(e) simple_invindx over phase 18 (c)'s 1,000,000 sparse_like rows
+    (vocab 60,000) under negdotprod_sparse_fast: batches of 1, 32 and 512
+    queries at k=10 against the exact scan of the same space, determinism
+    and batch independence. Returns the numbers it printed."""
+    import torch
+    from tpu_knn_torch import DataKind, Index
+    from tpu_knn_torch.eval.datasets import sparse_like
+
+    out = {}
+    k, n3 = K, 1_000_000
+    th = time.perf_counter()
+    p3 = sparse_like(n3 + 512, vocab=60_000, nnz=64, seed=0)
+    c3, q3 = p3[:n3], p3[n3:n3 + 512]
+    data_s = time.perf_counter() - th
+    tx = Index("negdotprod_sparse_fast", method="simple_invindx", data_type=DataKind.SPARSE, device="cuda")
+    tb = time.perf_counter()
+    tx.add_sparse_batch(c3, ids=range(n3))
+    tx.build_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    inv = tx.method._inv
+    # the exact scan of the same space over the same (validated) points
+    ex = Index("negdotprod_sparse_fast", method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+    ex.store = tx.store
+    ex.build_index()
+    print(f"[invindx] (e) negdotprod_sparse_fast {n3} rows (vocab 60,000): data {data_s:.1f} s, add + postings "
+          f"{build_s:.1f} s, {inv.total_postings} postings in {inv.pdoc_blocks.shape[0] - 1} blocks of 128", flush=True)
+    for nq in (1, 32, 512):
+        qs = q3[:nq]
+        tx.method.dist_comps = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        d, i = tx.knn_query_batch(qs, k)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        touched = tx.method.dist_comps / max(8, nq)  # the batch runs bucketed to a power of two >= 8
+        med, d2, i2 = _timed_knn(tx, qs, k, 5, statistics.median)
+        _require(np.array_equal(d, d2) and np.array_equal(i, i2), lambda: f"taat nq={nq}: two calls differ")
+        dr, ir = tx.knn_query_batch(qs[::-1], k)
+        _require(np.array_equal(dr[::-1], d) and np.array_equal(ir[::-1], i),
+                 lambda: f"taat nq={nq}: a reversed batch changed a query's bits")
+        de, ie = ex.knn_query_batch(qs, k)
+        _require(bool(np.isfinite(d).all() and (i >= 0).all()), lambda: f"taat nq={nq}: an untouched result")
+        off = 0
+        for r, c in zip(*np.nonzero(i != ie)):
+            off += 1
+            _require(i[r, c] in set(ie[r]) or bool(np.isclose(d[r, c], de[r, -1], rtol=5e-3, atol=1e-5)),
+                     lambda: f"taat nq={nq}: query {r} returns id {i[r, c]} where the scan returns {ie[r, c]}")
+        derr = float(np.max(np.abs(d - de) / np.maximum(np.abs(de), 1e-30)))
+        _require(derr <= 5e-3, lambda: f"taat nq={nq}: distances off the exact scan's by {derr:.3g} relative")
+        out[str(nq)] = {"ms": med * 1e3, "touched": touched, "peak_gib": peak}
+        print(f"[invindx] (e) taat nq={nq}, k={k}: median of 5 {med * 1e3:.3f} ms a batch, {touched:.0f} touched "
+              f"documents a query, peak allocated {peak:.3f} GiB; ids equal to the exact scan's except {off} on ties, "
+              f"max relative |dist - scan| {derr:.3g}; two calls equal, a reversed batch the same bits; {smi}",
+              flush=True)
+    del tx, ex
+    sm = Index("negdotprod_sparse_fast", method="simple_invindx", data_type=DataKind.SPARSE, device="cuda")
+    sm.add_sparse_batch(c3[:100_000])
+    _same_after_save_load("(e) simple_invindx over 100,000 rows", sm, q3[:32], k)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2685,7 +3129,6 @@ def main() -> int:
 
     # ---- 17. dense: the other dense spaces ----
     dn = _phase_dense(smi, corpus, queries)
-    del corpus, queries
     t0 = _phase("dense", t0)
     print("[dense] " + json.dumps(dn) + f"; {smi}", flush=True)
 
@@ -2696,6 +3139,19 @@ def main() -> int:
         "scan_100k": sn["scan_100k"], "hnsw_exact": sn["hnsw_exact"], "hnsw_default": sn["hnsw_default"],
         "scan_1m": sn["scan_1m"], "side": sn["side"], "wave_profile": sn["wave_profile"], "r_ulp": sn["r_ulp"]},
         default=float) + f"; {smi}", flush=True)
+
+    # ---- 19. bits, word_embed, NAPP and the inverted index ----
+    torch.cuda.empty_cache()
+    bt = _phase_bits(smi, corpus, queries)
+    print("[bits] " + json.dumps(bt, default=float) + f"; {smi}", flush=True)
+    em = _phase_embed(smi)
+    print("[embed] " + json.dumps(em, default=float) + f"; {smi}", flush=True)
+    na = _phase_napp(smi, corpus, queries, i10)
+    print("[napp] " + json.dumps(na, default=float) + f"; {smi}", flush=True)
+    del corpus, queries
+    iv = _phase_invindx(smi)
+    print("[invindx] " + json.dumps(iv, default=float) + f"; {smi}", flush=True)
+    t0 = _phase("bits, word_embed, napp and invindx", t0)
 
     src_wgmma = "tpu_knn_torch/csrc/groupmin_wgmma.cu"
     rows = [

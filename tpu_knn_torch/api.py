@@ -10,18 +10,23 @@ Preserved semantics:
   * validation: l2*/cosine* require dim (lib.zig:351-378);
   * query batches padded to power-of-two buckets, as tpu_knn does.
 
-Ported so far: dense f32, uint8 and sparse data; every dense space of
-tpu_knn (``l2``, ``l1``, ``linf``, ``lp``, ``cosinesimil`` with its alias
+Ported so far: dense f32, uint8, sparse and string data; every dense space
+of tpu_knn (``l2``, ``l1``, ``linf``, ``lp``, ``cosinesimil`` with its alias
 ``cosine``, ``angulardist``, ``negdotprod``, the KL, Itakura-Saito,
 Jensen-Shannon, alpha-beta and Renyi divergences, ``l2sqr_sift`` and
-``dummy``) and every sparse one (the scalar products with their ``_fast``
-and ``_bin_fast`` variants, the Lp family and jaccard); the exact scan
+``dummy``), every sparse one (the scalar products with their ``_fast``
+and ``_bin_fast`` variants, the Lp family and jaccard), the bit spaces
+``bit_hamming`` and ``bit_jaccard`` (0/1 uint8 rows, or packed words
+through :meth:`Index.add_bit_batch_packed`) and ``word_embed`` (text
+lines "word v1 ... vd"; queries may be bare words); the exact scan
 (``seq_search``/``brute_force``) with every pass-1 precision tier and
-every ``precision``, and ``hnsw`` (the default method) with the wave
-build; kNN, async kNN and range queries; save/load in tpu_knn's format v3
+every ``precision``, ``hnsw`` (the default method) with the wave
+build, ``napp``/``pivot_neighb_invindx`` and ``simple_invindx``; kNN,
+async kNN and range queries; save/load in tpu_knn's format v3
 (io/persist.py), so a file either package writes loads in the other.
 Sparse query batches are lists of (ids, values) or SparsePoint, of any
-length. ``mesh=`` and the other methods come in later slices (ROADMAP.md).
+length; string batches lists of str or bytes. ``mesh=`` and the other
+methods come in later slices (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -175,6 +180,24 @@ class Index:
         self.store.add_sparse_batch(points, ids)
         self.built = False
 
+    def add_bit_batch_packed(
+        self,
+        words: Any,
+        n_bits: int | None = None,
+        ids: Sequence[int] | None = None,
+    ) -> None:
+        """Add u32-word-packed bit vectors (the reference's native bit
+        format, space_bit_hamming.h:43-52): bit j of word i is element
+        32*i+j; pass ``n_bits`` to drop last-word padding. Unpacked to 0/1
+        uint8 rows at ingestion (spaces/bits.py)."""
+        from .spaces.bits import unpack_bit_vectors
+
+        self.add_uint8_batch(unpack_bit_vectors(words, n_bits), ids)
+
+    def add_string_batch(self, strings: Sequence[str | bytes], ids: Sequence[int] | None = None) -> None:
+        self.store.add_string_batch(strings, ids)
+        self.built = False
+
     def _check_dim(self, arr: np.ndarray) -> None:
         want = self.space_params.get("dim")
         if want is not None and arr.ndim >= 1:
@@ -255,7 +278,7 @@ class Index:
         if bb != b:
             if isinstance(pts, np.ndarray):
                 pts = np.concatenate([pts, np.repeat(pts[:1], bb - b, axis=0)], 0)
-            else:  # a list of sparse points
+            else:  # a list of sparse or string points
                 pts = list(pts) + [pts[0]] * (bb - b)
         return pts, b
 
@@ -292,6 +315,8 @@ class Index:
     def _prep_query_points(self, points: Any):
         if self.data_type is DataKind.SPARSE:
             return [p if isinstance(p, SparsePoint) else DataStore.validate_sparse(p) for p in points]
+        if self.data_type is DataKind.STRING:
+            return list(points)
         if self.data_type is DataKind.UINT8:
             arr = np.asarray(points, dtype=np.uint8)
             return arr[None, :] if arr.ndim == 1 else arr
@@ -352,6 +377,9 @@ class Index:
 
     def borrow_data_sparse(self, position: int) -> SparsePoint:
         return self.store.get_point(position)
+
+    def borrow_data_point_string(self, position: int) -> str:
+        return self.store.get_point(position).decode("utf-8")
 
     # ---------------- persistence ----------------
 

@@ -134,7 +134,7 @@ class DataStore:
         if sids.size:
             if sids[0] < 1:
                 raise InvalidSparseElementError("sparse element ids must be >= 1")
-            if np.any(np.diff(sids) <= 0):
+            if not (sids[1:] > sids[:-1]).all():  # no np.diff copy: ingestion validates every point
                 raise InvalidSparseElementError("sparse element ids must be strictly increasing")
         return SparsePoint(sids.astype(np.int32), vals)
 

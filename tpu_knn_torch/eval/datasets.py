@@ -78,6 +78,14 @@ def sift_like(n: int, d: int = 128, seed: int = 0) -> np.ndarray:
     return _cached(f"sift_like_{n}x{d}_s{seed}", make)
 
 
+def glove_like(n: int, d: int = 100, seed: int = 0) -> np.ndarray:
+    """Zero-mean clustered vectors, GloVe-style (used with cosinesimil)."""
+    return _cached(
+        f"glove_like_{n}x{d}_s{seed}",
+        lambda: clustered(n, d, n_clusters=max(n // 300, 64), latent_dim=24, seed=seed),
+    )
+
+
 def sparse_like(
     n: int,
     vocab: int = 30_000,

@@ -14,10 +14,10 @@ embedded arrays when present and the ``.dat.npz`` otherwise, so both
 load modes work for both save modes. Format-v1 headers (no embedded
 data, no v3 layout) raise :class:`DataIOError`.
 
-Dense, uint8 and sparse stores are ported (the port has no string space
-yet). A sparse store is saved as its row lengths, concatenated element ids
-and values (``sparse_len``, ``sparse_ids``, ``sparse_vals``), as tpu_knn
-saves it.
+A sparse store is saved as its row lengths, concatenated element ids and
+values (``sparse_len``, ``sparse_ids``, ``sparse_vals``), a string store as
+its byte lengths and concatenated UTF-8 bytes (``str_len``, ``str_bytes``),
+as tpu_knn saves them.
 """
 
 from __future__ import annotations
@@ -35,10 +35,12 @@ _FORMAT_VERSION = 3  # v3: data arrays in exactly one artifact (see module doc)
 
 
 def _store_to_arrays(store: DataStore) -> dict[str, np.ndarray]:
-    if store.kind is DataKind.STRING:
-        raise DataIOError(f"saving a {store.kind.value} store is not ported (ROADMAP.md)")
     out = {"ids": np.asarray(store.ids, np.int64), "labels": np.asarray(store.labels, np.int64)}
-    if store.kind is DataKind.SPARSE:
+    if store.kind is DataKind.STRING:
+        bs = store.strings()
+        out["str_len"] = np.asarray([len(b) for b in bs], np.int64)
+        out["str_bytes"] = np.frombuffer(b"".join(bs), dtype=np.uint8) if bs else np.zeros(0, np.uint8)
+    elif store.kind is DataKind.SPARSE:
         pts = store.sparse_points()
         out["sparse_len"] = np.asarray([len(p.ids) for p in pts], np.int64)
         out["sparse_ids"] = np.concatenate([p.ids for p in pts]) if pts else np.zeros(0, np.int32)
@@ -49,11 +51,15 @@ def _store_to_arrays(store: DataStore) -> dict[str, np.ndarray]:
 
 
 def _store_from_arrays(kind: DataKind, arrays) -> DataStore:
-    if kind is DataKind.STRING:
-        raise DataIOError(f"loading a {kind.value} store is not ported (ROADMAP.md)")
     store = DataStore(kind)
     ids = arrays["ids"].tolist()
-    if kind is DataKind.SPARSE:
+    if kind is DataKind.STRING:
+        raw = arrays["str_bytes"].tobytes()
+        ends = np.cumsum(arrays["str_len"])
+        strs = [raw[e - n:e] for n, e in zip(arrays["str_len"].tolist(), ends.tolist())]
+        if strs:
+            store.add_string_batch(strs, ids)
+    elif kind is DataKind.SPARSE:
         sids, svals = arrays["sparse_ids"], arrays["sparse_vals"]
         ends = np.cumsum(arrays["sparse_len"])
         pts = [(sids[e - n:e], svals[e - n:e]) for n, e in zip(arrays["sparse_len"], ends)]

@@ -71,9 +71,10 @@ def streaming_smallest_k(
     """Scan ``num_chunks`` corpus chunks, keeping a running top-k.
 
     ``chunk_dists(ci)`` must return the [Q, chunk_size] distance block for
-    chunk ``ci`` (with padded corpus rows already set to +inf). Device
-    memory stays at one [Q, chunk] block + O(k) state. Running entries come
-    before the chunk's in the merge, so ties keep the lowest column.
+    chunk ``ci`` (with padded corpus rows already set to +inf); the last
+    block may be narrower. Device memory stays at one [Q, chunk] block +
+    O(k) state. Running entries come before the chunk's in the merge, so
+    ties keep the lowest column whatever the chunk size.
     ``nan_free``: no block holds a NaN (see :func:`smallest_k`).
     """
     fd = torch.full((num_queries, k), INF, dtype=torch.float32, device=device)
@@ -81,7 +82,7 @@ def streaming_smallest_k(
     cols = torch.arange(chunk_size, device=device).expand(num_queries, chunk_size)
     for ci in range(num_chunks):
         d = chunk_dists(ci)  # [Q, C]
-        fd, fi = merge_topk(fd, fi, d, cols + ci * chunk_size, k, nan_free)
+        fd, fi = merge_topk(fd, fi, d, cols[:, :d.shape[1]] + ci * chunk_size, k, nan_free)
     return fd, fi
 
 

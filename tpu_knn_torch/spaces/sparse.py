@@ -118,6 +118,10 @@ class SparseSpaceBase(Space):
         in row blocks either way (ops/sparse.py)."""
         return 256 if self.device.type == "cpu" else 4096
 
+    #: tpu_knn's preferred chunk on every device: a method whose results
+    #: depend on its chunk (NAPP's gather route) plans with it
+    reference_chunk = 256
+
     #: The exact scan stays single pass: its two-pass route re-scores
     #: [Q, kg*128, nnz] gathered candidates for nothing a sparse pass 1
     #: could save (methods/seq_search.py _plan_knn).
