@@ -108,7 +108,10 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     128 two builds from one seed give equal graphs and results, a reversed
     batch the reversed results, post=1 keeps check_graph zero; l2sqr_sift
     and angulardist over 20,000 rows (ramped head waves) return a
-    self-query first and reach recall@10 >= 0.9 at efSearch=100.
+    self-query first and reach recall@10 >= 0.9 at efSearch=100. (The two
+    20,000-row builds with replicateNeighbors=1 through build_index were
+    cut: the 100,000-row cell holds both stores, the CPU tests the
+    parameters' way in.)
 16. nnd, the default index at SIFT-1M: Index("l2", Params(dim=128),
     device="cuda") over phase 4's 1,000,000 rows, build_index with
     bench.py's Params1M (M=16, efConstruction=100, waveSize=1024,
@@ -122,10 +125,11 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     distance within rtol 5e-3 of its float64 value; then 20,000-row cells
     with buildAlgo="nndescent" below the threshold: the same seed twice
     (torch.equal on every level), l2sqr_sift on uint8 rows, cosinesimil on
-    clustered rows, nndRevMode="slots", nndStoreDtype="float32" (the
-    wide-row branch at D=128), nndPolishStore=0 and D=960 (the wide-row
-    branch of the int8 store), each with check_graph all zero and
-    recall@10 at efSearch=50 against GoldStandard.
+    clustered rows, one build with nndRevMode="slots",
+    nndStoreDtype="float32" (the wide-row branch at D=128) and
+    nndPolishStore=0 together (three one-option cells before), and D=960
+    (the wide-row branch of the int8 store), each with check_graph all
+    zero and recall@10 at efSearch=50 against GoldStandard.
 17. dense, the other dense spaces, over seeded Dirichlet(0.1) histograms
     (1,002,048 x 128 in f32, some components 0) and phase 4's rows:
     kldivgenfast over 1M of them with 2048 queries at k=10 on the
@@ -142,30 +146,31 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     p=3 and abdiv at alpha 1.2, beta 0.7, with range on l1 and
     kldivgenfast, all against float64 oracles of the reference formulas
     (ids equal except on ties within twice the f32 bound); HNSW, the
-    default Index("kldivgenfast", Params(dim=128)) over 100,000
-    histograms (waves, M=16, efConstruction=200, waveSize=1024) with
+    default Index("kldivgenfast", Params(dim=128)) over 20,000
+    histograms (cut from 100,000; waves, M=16, efConstruction=200,
+    waveSize=1024) with
     check_graph all zero, recall@10 and qps at efSearch 20, 100, 400,
     1000, exact distances, and Index("l1") over 20,000 rows (the generic
     pair scoring) with check_graph zero, self-queries first and recall@10
     at efSearch=100 >= 0.9.
 18. sparse, the sparse spaces over seeded sparse_like bag-of-words rows:
-    (a) bench.py's config 5, nothing cut: cosinesimil_sparse over 100,000
-    rows (vocab 30,000, 64 terms a row), 512 queries at k=10; the exact
-    scan (median of 5) against a float64 scipy oracle; HNSW with exact
-    waves (sketchDim=0, M=16, efConstruction=100, waveSize=512): build
-    seconds, peak memory, check_graph all zero, recall@10 against the scan
-    and qps (best of 3) at efSearch 50 and 100 (recall >= 0.95 at 100),
-    every distance its id's f64 distance, and save/load in each mode with
-    results bit-identical; (b) the default build on the same rows (the
-    JL-sketch proxy, sketchDim=1024, exactBase, exactPairs), the same
-    checks; (c) the 1M exact scan (1,000,000 rows, vocab 60,000): median of
-    5, peak memory, 64 queries against the f64 oracle; (d) at 10,000 rows
-    every sparse name's kNN and range against its f64 oracle, HNSW with
-    sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse and
-    sparse_jaccard HNSW (recall@10 at efSearch=100 >= 0.5, 0.9, 0.85, 0.9), R
-    drawn on the card against R drawn on the CPU, whether the native
-    pack_csr built. No kernel lies on this path: torch ops, as they are XLA
-    ops in tpu_knn.
+    (a) bench.py's config 5: cosinesimil_sparse over 100,000 rows (vocab
+    30,000, 64 terms a row), 512 queries at k=10; the exact scan (median
+    of 5) against a float64 scipy oracle; (b) the default HNSW build on the
+    same rows (the JL-sketch proxy, sketchDim=1024, exactBase, exactPairs;
+    M=16, efConstruction=100, waveSize=512): build seconds, peak memory,
+    check_graph all zero, recall@10 against the scan and qps (best of 3) at
+    efSearch 50 and 100 (recall >= 0.95 at 100), every distance its id's
+    f64 distance, and save/load in each mode with results bit-identical;
+    (c) the 1M exact scan (1,000,000 rows, vocab 60,000): median of 5, peak
+    memory, 64 queries against the f64 oracle; (d) at 10,000 rows every
+    sparse name's kNN and range against its f64 oracle, HNSW by exact waves
+    (sketchDim=0, moved here from 100,000 rows, its wave phases timed),
+    with sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse
+    and sparse_jaccard HNSW (recall@10 at efSearch=100 >= 0.9, 0.5, 0.9,
+    0.85, 0.9), R drawn on the card against R drawn on the CPU, whether the
+    native pack_csr built. No kernel lies on this path: torch ops, as they
+    are XLA ops in tpu_knn.
 19. bits, word_embed, NAPP and the inverted index: (a) [bits] SimHash
     codes of phase 4's rows (signs of a seeded [128, 256] Gaussian
     projection, 256 bits packed to uint32 words) through
@@ -195,7 +200,36 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     indexes of both bit spaces, (c)'s NAPP index on the gather route,
     (d)'s 20,000-row NAPP index and a 100,000-row simple_invindx. Only
     (a)'s bit_hamming runs a kernel; the rest is torch ops, as it is XLA
-    ops in tpu_knn.
+    ops in tpu_knn. (e) runs after phase 20, once the 1M dense rows are
+    freed.
+20. VP-tree, sw-graph, the string spaces, SQFD, fusion and dummy (torch
+    ops, as they are XLA ops in tpu_knn; dummy reaches the f32 kernel
+    through seq_search): (a) [vptree] VP-tree over phase 4's 1,000,000
+    rows (l2, bucketSize=64, seed 0): build seconds and peak, alpha=2 at
+    maxLeavesToVisit 16 / 32 / 64 on the gathered route against phase 4's
+    exact ids (recall >= 0.95 at 64, not falling as the cap grows, every
+    distance its f64 distance) with qps (median of 3), the exact pruner on
+    the masked route (256 queries, ids phase 4's up to ties), range at
+    phase 9's radius equal id set for id set to seq_search's; (d) [sqfd]
+    the three SQFD names over 10,000 seeded signatures of 8-16 clusters in
+    d=8 and sparse_dense_fusion over 10,000 objects of a 128-d dense and a
+    sparse_like component, 64 queries each, against float64 numpy oracles
+    (ids a top-10 up to ties, distances within rtol 5e-3), range on one of
+    each; dummy with doSeqSearch=1 bit-equal to seq_search over 20,000 of
+    phase 4's rows with groupmin_f32 launched, and empty without it;
+    (b) [swgraph] sw-graph (NN=16, efConstruction=100, waveSize=1024) over
+    the first 97,952 of HNSW-100k's corpus rows, the last 2,048 added
+    after the build (built kept, each added row its own first hit), 1,000
+    seeded deletions with neighbors_only and 1,000 with none, check_graph
+    zero, no deleted id returned, recall@10 against seq_search over the
+    survivors at efSearch 20 / 50 / 100 (>= 0.9 at 100) with qps, save/load
+    with the mask bit-identical; (c) [string] leven and normleven over
+    100,000 seeded DNA-like strings (ACGT, lengths 24-40), 256 queries of
+    1-4 seeded edits: seq_search ms a batch, the first 16 queries'
+    distances equal to the native Levenshtein over every pair, the chunk
+    used; HNSW leven over 10,000 of them (M=16, efConstruction=100; cut
+    from 20,000), tie-aware recall@10 at efSearch=100 >= 0.9 against the
+    scan.
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1234,7 +1268,8 @@ def _phase_hnsw(smi):
     # replicateNeighbors=1 at the 100k cell: the store is made lazily from the
     # graph at the first query, so this sets the built method's two parameters
     # instead of building the same graph twice more; the parameters' own way
-    # in, through build_index, runs below at 20,000 rows
+    # in, through build_index, is held on the CPU (tests/test_torch_hnsw.py)
+    # and at SIFT-1M in phase 16
     base_mem = idx.memory_usage_bytes()
     for dtype in ("bfloat16", "int8"):
         m.replicate_neighbors, m.nbr_store_dtype, m._nbr_store = 1, dtype, None
@@ -1281,33 +1316,6 @@ def _phase_hnsw(smi):
     p, sp = det_build(post=1)
     chk = p.method.check_graph()
     _require(chk == zero and a.method.check_graph() == zero, lambda: f"check_graph with post=1: {chk}")
-    # replicateNeighbors and nbrStoreDtype as build_index parameters: the same
-    # graph, answers through the store within 0.01 recall of the plain ones
-    qd = queries[:256]
-    _, g2 = GoldStandard(a.space, a.store).compute_knn(qd, k)
-    q2_dev, x2_dev = torch.from_numpy(qd).to("cuda"), torch.from_numpy(corpus[:n2]).to("cuda")
-    a.set_query_time_params(Params(efSearch=100))
-    rec_plain = _recall_at(a.knn_query_batch(qd, k)[1], g2, k)
-    for dtype in ("bfloat16", "int8"):
-        r, _ = det_build(replicateNeighbors=1, nbrStoreDtype=dtype)
-        _require(torch.equal(r.method.graph["level0"], a.method.graph["level0"]),
-                 lambda: f"replicateNeighbors=1 {dtype}: a different graph")
-        before = r.memory_usage_bytes()
-        r.set_query_time_params(Params(efSearch=100))
-        dr, ir = r.knn_query_batch(qd, k)
-        store = r.method._nbr_store[1]
-        want = torch.int8 if dtype == "int8" else torch.bfloat16
-        _require(store.dtype == want and r.memory_usage_bytes() - before == store.nbytes,
-                 lambda: f"build_index(replicateNeighbors=1, nbrStoreDtype={dtype!r}): store {store.dtype}, "
-                         f"memory grew by {r.memory_usage_bytes() - before} of {store.nbytes}")
-        _check_exact_distances(f"replicateNeighbors=1 {dtype} through build_index", dr, ir, q2_dev, x2_dev)
-        rec = _recall_at(ir, g2, k)
-        _require(abs(rec - rec_plain) <= 0.01, lambda: f"{dtype} store recall {rec} against {rec_plain}")
-        print(f"[hnsw] build_index(Params(replicateNeighbors=1, nbrStoreDtype={dtype!r})), {n2} x {DIM}: the same "
-              f"graph, store {store.nbytes / 2**20:.1f} MiB {store.dtype}, recall@{k} at efSearch=100 {rec:.4f} "
-              f"(plain {rec_plain:.4f}), distances exact; {smi}", flush=True)
-        del r, store
-    del q2_dev, x2_dev
     print(f"[hnsw] determinism, {n2} x {DIM}, {det_params}: two builds ({sa:.2f} s, {sb:.2f} s) give equal "
           f"level0 and {len(a.method._upper)} upper levels and identical results; a reversed batch gives the "
           f"reversed results; post=1 builds in {sp:.2f} s with check_graph {chk}; {smi}", flush=True)
@@ -1432,10 +1440,9 @@ def _phase_nnd(smi, corpus, queries, i10):
         ("l2sqr_sift uint8", "l2sqr_sift", dict(data_type=DataKind.UINT8, dist_type=DistKind.INT), None, cu8,
          np.rint(queries[:256]).astype(np.uint8), side, 0.9),
         ("cosinesimil clustered", "cosinesimil", {}, Params(dim=100), ang[:n2], ang[n2:], side, 0.9),
-        ("nndRevMode=slots", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndRevMode="slots"), 0.85),
-        ("nndStoreDtype=float32", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndStoreDtype="float32"),
-         0.9),
-        ("nndPolishStore=0", "l2", {}, None, corpus[:n2], queries[:256], dict(side, nndPolishStore=0), 0.9),
+        # three one-option variants in one build (each is held to tpu_knn on the CPU)
+        ("nndRevMode=slots nndStoreDtype=float32 nndPolishStore=0", "l2", {}, None, corpus[:n2], queries[:256],
+         dict(side, nndRevMode="slots", nndStoreDtype="float32", nndPolishStore=0), 0.85),
         ("D=960", "l2", {}, Params(dim=960), wide[:n2], wide[n2:], side, 0.9),
     )
     built = {}
@@ -1822,8 +1829,9 @@ def _phase_dense(smi, corpus, queries):
     out["routes"] = routes
     torch.cuda.empty_cache()
 
-    # ---- HNSW: the default index over 100,000 histograms, waves ----
-    nh = 100_000
+    # ---- HNSW: the default index over 20,000 histograms, waves (cut from 100,000: the cell has
+    # no recall floor, i.i.d. Dirichlet rows set the recall) ----
+    nh = 20_000
     hi = Index("kldivgenfast", Params(dim=DIM), device="cuda")  # no method=: hnsw
     hi.add_dense_batch(hx[:nh])
     torch.cuda.synchronize()
@@ -2133,9 +2141,9 @@ def _phase_sparse(smi):
         return ix, {"build_s": build_s, "peak_gib": peak, "search": rows}
 
     G.reset_counters()
-    hx, out["hnsw_exact"] = hnsw_cell("(a) hnsw sketchDim=0", dict(M=16, efConstruction=100, waveSize=512,
-                                                                    sketchDim=0))
-    # ---- save/load of (a)'s index in each mode ----
+    hx, out["hnsw_default"] = hnsw_cell("(b) hnsw default (sketch proxy)", dict(M=16, efConstruction=100,
+                                                                                waveSize=512))
+    # ---- save/load of (b)'s index in each mode ----
     hx.set_query_time_params(Params(efSearch=100))
     d0, i0 = hx.knn_query_batch(queries, k)
     tmp = tempfile.mkdtemp(prefix="tk_sparse_")
@@ -2152,15 +2160,13 @@ def _phase_sparse(smi):
                 del ld
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    print("[sparse] save/load of (a)'s index, save_data and load_data each True and False: results bit-identical",
+    print("[sparse] save/load of (b)'s index, save_data and load_data each True and False: results bit-identical",
           flush=True)
-    del hx
-    _, out["hnsw_default"] = hnsw_cell("(b) hnsw default (sketch proxy)", dict(M=16, efConstruction=100,
-                                                                               waveSize=512))
-    del ex
+    del hx, ex
     torch.cuda.empty_cache()
 
-    # ---- (d) side cells at 10,000 rows (cut from 20,000 to keep the phase near 300 s) ----
+    # ---- (d) side cells at 10,000 rows (cut from 20,000 to keep the phase near 300 s; the exact-wave
+    # build, sketchDim=0, moved here from 100,000 rows: its graph holds tpu_knn's on the CPU) ----
     n2, nq2 = 10_000, 256
     c2, q2 = corpus[:n2], queries[:nq2]
     x2, qq2 = x64[:n2], q64[:nq2]
@@ -2185,21 +2191,33 @@ def _phase_sparse(smi):
     dd, bb = oracles["cosine"]
     gold = np.argsort(dd, axis=1, kind="stable")[:, :k]
     side = {}
+    from tpu_knn_torch.methods.hnsw import Hnsw
+
     # recall@10 floors at efSearch=100: sketch traversal is limited by the
     # sketch's noise; l2 over unnormalized bag-of-words rows is harder for
     # the graph (its exact-wave graph holds tpu_knn's neighbour sets on the
-    # CPU, tests/test_torch_sparse.py, so its recall is tpu_knn's)
+    # CPU, tests/test_torch_sparse.py, so its recall is tpu_knn's). The
+    # exact-wave build also times its wave phases, a sync at each edge.
     for label, name, params, floor in (
+            ("sketchDim=0", "cosinesimil_sparse", dict(sketchDim=0), 0.9),
             ("sketchQuery=1", "cosinesimil_sparse", dict(sketchQuery=1), 0.5),
             ("exactPost=1 exactShrink=1", "cosinesimil_sparse", dict(exactPost=1, exactShrink=1), 0.9),
             ("l2_sparse", "l2_sparse", {}, 0.85),
             ("sparse_jaccard", "sparse_jaccard", {}, 0.9)):
         ix = Index(name, data_type=DataKind.SPARSE, device="cuda")
         ix.add_sparse_batch(c2, ids=range(n2))
-        tb = time.perf_counter()
-        ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
-        torch.cuda.synchronize()
-        bs = time.perf_counter() - tb
+        Hnsw.wave_profile = {} if label == "sketchDim=0" else None
+        try:
+            tb = time.perf_counter()
+            ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
+            torch.cuda.synchronize()
+            bs = time.perf_counter() - tb
+            if label == "sketchDim=0":
+                out["wave_profile"] = {"build_s": bs, **Hnsw.wave_profile}
+                print(f"[sparse] (d) hnsw {label} {n2} rows, wave phases timed: " + ", ".join(
+                    f"{key} {v:.3f} s" for key, v in out["wave_profile"].items()) + f"; {smi}", flush=True)
+        finally:
+            Hnsw.wave_profile = None
         chk = ix.method.check_graph()
         ix.set_query_time_params(Params(efSearch=100))
         dh, ih = ix.knn_query_batch(q2, k)
@@ -2215,25 +2233,6 @@ def _phase_sparse(smi):
         _require(chk == zero and exact, lambda: f"hnsw {label}: check_graph {chk}, distances exact {exact}")
         _require(rec >= floor, lambda: f"hnsw {label}: recall {rec} below {floor}")
     out["side"] = side
-
-    # ---- where a 10,000-row build's time goes: wave phases, a sync at each edge ----
-    from tpu_knn_torch.methods.hnsw import Hnsw
-
-    out["wave_profile"] = {}
-    for label, params in (("sketchDim=0", dict(sketchDim=0)), ("default", {})):
-        Hnsw.wave_profile = {}
-        try:
-            ix = Index("cosinesimil_sparse", data_type=DataKind.SPARSE, device="cuda")
-            ix.add_sparse_batch(c2, ids=range(n2))
-            tb = time.perf_counter()
-            ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
-            torch.cuda.synchronize()
-            prof = {"build_s": time.perf_counter() - tb, **Hnsw.wave_profile}
-        finally:
-            Hnsw.wave_profile = None
-        out["wave_profile"][label] = prof
-        print(f"[sparse] (d) hnsw {label} {n2} rows, wave phases timed: " + ", ".join(
-            f"{key} {v:.3f} s" for key, v in prof.items()) + f"; {smi}", flush=True)
 
     # ---- R drawn on the card against R drawn on the CPU ----
     v_pad = 30_080
@@ -2704,6 +2703,446 @@ def _phase_invindx(smi):
     return out
 
 
+# ---------------- phase 20: VP-tree, sw-graph, the string spaces, SQFD, fusion, dummy ----------------
+
+
+def _tie_recall(d, d_gold, k: int) -> float:
+    """Tie-aware recall@k: a returned id counts when its distance is at most
+    the true k-th distance (integer distances tie in bulk)."""
+    kth = d_gold[:, k - 1:k]
+    return float(np.mean(np.sum(np.isfinite(d[:, :k]) & (d[:, :k] <= kth), axis=1) / k))
+
+
+def _phase_vptree(smi, corpus, queries, i10, d10):
+    """(a) [vptree]: VP-tree over phase 4's 1,000,000 sift_like rows (l2,
+    bucketSize=64, seed 0; 2048 queries, k=10), tpu_knn's own 1M VP-tree
+    cell: build seconds and peak; alpha=2 at maxLeavesToVisit 16/32/64 on
+    the gathered route against phase 4's exact ids, qps (median of 3); the
+    exact pruner on the masked route (256 queries); range at phase 9's
+    radius against seq_search's. Returns the numbers it printed."""
+    import torch
+    from tpu_knn_torch import Index, Params
+
+    n, nq, k = corpus.shape[0], queries.shape[0], K
+    out = {}
+    vp = Index("l2", Params(dim=DIM), method="vptree", device="cuda")
+    vp.add_dense_batch(corpus)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    vp.build_index(Params(bucketSize=64, seed=0))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - tb
+    out["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    m = vp.method
+    print(f"[vptree] build {n} x {DIM}, bucketSize=64: {out['build_s']:.2f} s, peak allocated "
+          f"{out['build_peak_gib']:.3f} GiB, depth {m.depth}, leaf_cap {m.leaf_cap}, chunk {m._chunk}; {smi}",
+          flush=True)
+    q_dev = torch.from_numpy(queries).to("cuda")
+    x_dev = torch.from_numpy(corpus).to("cuda")
+    rows = {}
+    for ml in (16, 32, 64):
+        vp.set_query_time_params(Params(alphaLeft=2.0, alphaRight=2.0, maxLeavesToVisit=ml))
+        m.dist_comps = 0
+        torch.cuda.reset_peak_memory_stats()
+        d, i = vp.knn_query_batch(queries, k)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        dc = m.dist_comps / nq
+        med = _median_ms(lambda: vp.knn_query_batch(queries, k), reps=3)[0]
+        err = _check_exact_distances(f"vptree maxLeavesToVisit={ml}", d, i, q_dev, x_dev)
+        rows[ml] = {"recall": _recall_at(i, i10, k), "ms": med, "qps": nq / med * 1e3, "dist_comps": dc}
+        print(f"[vptree] alpha=2 maxLeavesToVisit={ml} (gathered route): recall@{k} {rows[ml]['recall']:.4f} "
+              f"against phase 4's exact ids, median of 3 {med:.2f} ms, {rows[ml]['qps']:.0f} qps, "
+              f"{dc:.0f} distances a query, peak {peak:.3f} GiB; max |d - f64| {err:.3g}; {smi}", flush=True)
+    recs = [rows[ml]["recall"] for ml in (16, 32, 64)]
+    _require(recs[2] >= 0.95, lambda: f"vptree recall@10 {recs[2]} at alpha=2, maxLeavesToVisit=64")
+    _require(recs[0] <= recs[1] <= recs[2], lambda: f"vptree recall falls as maxLeavesToVisit grows: {recs}")
+    out["search"] = rows
+
+    # the exact pruner (alpha=1, exp=1, no cap): the masked route
+    nx = 256
+    vp.set_query_time_params(None)
+    tx = time.perf_counter()
+    dx, ix = vp.knn_query_batch(queries[:nx], k)
+    exact_s = time.perf_counter() - tx
+    diff = ix != i10[:nx]
+    tie = np.abs(dx - d10[:nx]) <= 1e-5 + 5e-3 * np.abs(d10[:nx])
+    _require(not (diff & ~tie).any(), lambda: f"vptree exact pruner: {int((diff & ~tie).sum())} ids differ beyond ties")
+    _check_exact_distances("vptree exact pruner", dx, ix, q_dev[:nx], x_dev)
+    print(f"[vptree] exact pruner (masked route), {nx} queries: {exact_s * 1e3:.1f} ms, ids equal to phase 4's at "
+          f"{int((~diff).sum())}/{diff.size} slots, the rest at equal distances; {smi}", flush=True)
+    out["exact_masked_ms"] = exact_s * 1e3
+
+    # range at phase 9's radius against seq_search's
+    radius = float(np.median(d10[:, k - 1]))
+    ss = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    ss.add_dense_batch(corpus)
+    want = ss.range_query_batch(queries[:nx], radius)
+    del ss
+    tr = time.perf_counter()
+    got = vp.range_query_batch(queries[:nx], radius)
+    range_s = time.perf_counter() - tr
+    odd = 0
+    for r, (g, w) in enumerate(zip(got, want)):
+        sym = set(g.ids.tolist()) ^ set(w.ids.tolist())
+        for pid in sym:  # only a pivot's distance, scored in another block, may cross the radius by an ulp
+            dd = float(torch.linalg.vector_norm(x_dev[pid].double() - q_dev[r].double()))
+            _require(abs(dd - radius) <= 1e-5 * radius, lambda: f"vptree range query {r}: id {pid} at {dd} differs")
+        odd += len(sym)
+    hits = sum(len(g) for g in got)
+    print(f"[vptree] range at {radius:.4f}, {nx} queries: {range_s * 1e3:.1f} ms, {hits} hits, id sets equal to "
+          f"seq_search's ({odd} differ within an ulp of the radius); {smi}", flush=True)
+    out["range_ms"] = range_s * 1e3
+    del vp, m, x_dev, q_dev
+    torch.cuda.empty_cache()
+    return out
+
+
+def _phase_swgraph(smi):
+    """(b) [swgraph]: sw-graph over HNSW-100k's rows (sift_like(102_048,
+    128, seed=0)): built over the first 97,952 corpus rows, the last 2,048
+    added after the build (a corpus that grows), 1,000 seeded deletions
+    with neighbors_only and 1,000 with none, recall@10 against seq_search
+    over the surviving rows and qps at efSearch 20/50/100, save/load with
+    the mask. Returns the numbers it printed."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval.datasets import sift_like
+
+    n, nq, k = 100_000, N_QUERIES, K
+    xall = sift_like(n + nq, DIM, seed=0)
+    corpus, queries = xall[:n], xall[n:]
+    n0 = n - 2048
+    zero = {"self_links": 0, "dup_links": 0, "oob_links": 0}
+    out = {}
+    sw = Index("l2", Params(dim=DIM), method="sw-graph", device="cuda")
+    sw.add_dense_batch(corpus[:n0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    sw.build_index(Params(NN=16, efConstruction=100, waveSize=1024))
+    torch.cuda.synchronize()
+    out["build_s"] = time.perf_counter() - tb
+    out["build_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ta = time.perf_counter()
+    sw.add_dense_batch(corpus[n0:])  # absorbed in place: AddBatch
+    torch.cuda.synchronize()
+    out["add_s"] = time.perf_counter() - ta
+    _require(sw.built and sw.method.data_qty() == n, lambda: "sw-graph add_batch rebuilt or lost rows")
+    sw.set_query_time_params(Params(efSearch=100))
+    _, ia = sw.knn_query_batch(corpus[n0:], k)
+    self_found = float(np.mean(ia[:, 0] == n0 + np.arange(2048)))
+    _require(self_found == 1.0, lambda: f"an added row does not find itself: {self_found}")
+    rng = np.random.default_rng(11)
+    doomed = rng.choice(n, 2000, replace=False)
+    td = time.perf_counter()
+    sw.delete_batch(doomed[:1000], strategy="neighbors_only")
+    torch.cuda.synchronize()
+    t_nb = time.perf_counter() - td
+    td = time.perf_counter()
+    sw.delete_batch(doomed[1000:], strategy="none")
+    torch.cuda.synchronize()
+    t_none = time.perf_counter() - td
+    chk = sw.method.check_graph()
+    out.update(delete_neighbors_only_s=t_nb, delete_none_s=t_none)
+    print(f"[swgraph] build {n0} x {DIM}, NN=16 efConstruction=100 waveSize=1024: {out['build_s']:.2f} s, peak "
+          f"{out['build_peak_gib']:.3f} GiB; add 2048 rows {out['add_s']:.2f} s (built kept, every added row its own "
+          f"first hit); delete 1000 neighbors_only {t_nb:.2f} s, 1000 none {t_none:.2f} s; data_qty "
+          f"{sw.method.data_qty()}, check_graph {chk}; {smi}", flush=True)
+    _require(chk == zero and sw.method.data_qty() == n - 2000, lambda: f"sw-graph after deletions: {chk}")
+    keep = np.setdiff1d(np.arange(n), doomed)
+    ex = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    ex.add_dense_batch(corpus[keep], ids=keep)
+    _, gi = ex.knn_query_batch(queries, k)
+    del ex
+    rows = {}
+    for ef in (20, 50, 100):
+        sw.set_query_time_params(Params(efSearch=ef))
+        d, i = sw.knn_query_batch(queries, k)
+        med = _median_ms(lambda: sw.knn_query_batch(queries, k), reps=3)[0]
+        _require(not np.isin(i, doomed).any(), lambda: f"sw-graph efSearch={ef} returned a deleted id")
+        rows[ef] = {"recall": _recall_at(i, gi, k), "ms": med, "qps": nq / med * 1e3}
+        print(f"[swgraph] efSearch={ef}: recall@{k} {rows[ef]['recall']:.4f} against seq_search over the "
+              f"surviving rows, median of 3 {med:.2f} ms, {rows[ef]['qps']:.0f} qps; {smi}", flush=True)
+    _require(rows[100]["recall"] >= 0.9, lambda: f"sw-graph recall@10 {rows[100]['recall']} at efSearch=100")
+    out["search"] = rows
+    tmp = tempfile.mkdtemp(prefix="tk_sw_")
+    try:
+        d0, i0 = sw.knn_query_batch(queries, k)
+        path = os.path.join(tmp, "sw")
+        sw.save(path)
+        back = Index.load(path, device="cuda")
+        back.set_query_time_params(Params(efSearch=100))
+        d1, i1 = back.knn_query_batch(queries, k)
+        _require(np.array_equal(d0, d1) and np.array_equal(i0, i1) and back.method.data_qty() == sw.method.data_qty(),
+                 lambda: "sw-graph results changed after save and load with the deletion mask")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("[swgraph] save/load with the deletion mask: results bit-identical", flush=True)
+    del sw, back
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dna(n: int, seed: int):
+    """n seeded DNA-like strings over ACGT, lengths 24-40."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(24, 41, n)
+    chars = np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, (n, 40))]
+    return [chars[i, :lens[i]].tobytes() for i in range(n)]
+
+
+def _edited(strings, seed: int):
+    """Each string with 1-4 seeded edits (substitute, insert or delete)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for s in strings:
+        b = bytearray(s)
+        for _ in range(int(rng.integers(1, 5))):
+            op, pos, ch = int(rng.integers(0, 3)), int(rng.integers(0, len(b) + 1)), b"ACGT"[int(rng.integers(0, 4))]
+            if op == 0 and pos < len(b):
+                b[pos] = ch
+            elif op == 1:
+                b.insert(pos, ch)
+            elif pos < len(b):
+                del b[pos]
+        out.append(bytes(b))
+    return out
+
+
+def _phase_string(smi):
+    """(c) [string]: leven and normleven over 100,000 seeded DNA-like
+    strings and 256 queries made by 1-4 seeded edits of corpus strings:
+    seq_search k=10 (ms a batch), distances against the native Levenshtein
+    over every pair for 16 queries; HNSW over 10,000 of the strings.
+    Returns the numbers it printed."""
+    import torch
+    from tpu_knn_torch import DataKind, DistKind, Index, Params
+    from tpu_knn_torch.io import native
+    from tpu_knn_torch.ops.distance import block_elems
+
+    n, nq, k, n_check = 100_000, 256, K, 16
+    corpus = _dna(n, 0)
+    queries = _edited([corpus[int(i)] for i in np.random.default_rng(1).integers(0, n, nq)], 2)
+    tn = time.perf_counter()
+    lib = native.load()
+    if lib is None:  # the library did not build: its Python fallback
+        lev = np.array([[native.levenshtein(q, x) for x in corpus] for q in queries[:n_check]], np.int64)
+    else:  # the library's tk_levenshtein on buffers made once per string
+        import ctypes
+
+        def buf(b):
+            return (ctypes.c_uint8 * max(len(b), 1)).from_buffer_copy(b or b"\0")
+
+        xb = [(buf(x), len(x)) for x in corpus]
+        lev = np.array([[lib.tk_levenshtein(qb, len(q), b, lx) for b, lx in xb]
+                        for q in queries[:n_check] for qb in (buf(q),)], np.int64)
+    native_s = time.perf_counter() - tn
+    lq, lx = np.array([len(q) for q in queries[:n_check]]), np.array([len(x) for x in corpus])
+    out = {}
+    for name, dt in (("leven", DistKind.INT), ("normleven", DistKind.FLOAT)):
+        ix = Index(name, method="seq_search", data_type=DataKind.STRING, dist_type=dt, device="cuda")
+        tb = time.perf_counter()
+        ix.add_string_batch(corpus)
+        ix.build_index()
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - tb
+        d, i = ix.knn_query_batch(queries, k)
+        med = _median_ms(lambda: ix.knn_query_batch(queries, k), reps=3)[0]
+        lq_pad = ix.space.encode_queries(queries)["qc"].shape[1]
+        sub = block_elems(torch.device("cuda")) // (nq * (lq_pad + 1))
+        if name == "leven":
+            want = np.sort(lev, axis=1)[:, :k]
+            got_exact = lev[np.arange(n_check)[:, None], i[:n_check]]
+        else:
+            norm = (lev / np.maximum(lq[:, None], lx[None, :])).astype(np.float32)
+            want = np.sort(norm, axis=1)[:, :k]
+            got_exact = norm[np.arange(n_check)[:, None], i[:n_check]]
+        ok = np.array_equal(d[:n_check], want) and np.array_equal(d[:n_check], got_exact)
+        _require(ok, lambda: f"{name}: distances differ from the native Levenshtein for the first {n_check} queries")
+        out[name] = {"ms": med, "qps": nq / med * 1e3, "encode_s": enc_s, "route": ix.method.last_route}
+        print(f"[string] {name} seq_search {n} strings (lengths 24-40), {nq} queries, k={k}: add + encode "
+              f"{enc_s:.2f} s, median of 3 {med:.2f} ms, {nq / med * 1e3:.0f} qps, route {ix.method.last_route}, "
+              f"scan chunk {ix.method._chunk} rows, DP blocks of {sub} rows; the first {n_check} queries' distances "
+              f"equal the native Levenshtein's over every pair ({native_s:.1f} s on the host); {smi}", flush=True)
+        if name == "leven":
+            gold_d, scan = d, ix
+        del ix
+    # 10,000 strings: at 20,000 the build took 91.25 s, more than the phase's
+    # share of the script's time (NVIDIA H100 80GB HBM3, 700 W)
+    n2 = 10_000
+    hs = Index("leven", method="hnsw", data_type=DataKind.STRING, dist_type=DistKind.INT, device="cuda")
+    hs.add_string_batch(corpus[:n2])
+    tb = time.perf_counter()
+    hs.build_index(Params(M=16, efConstruction=100, waveSize=1024))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    chk = hs.method.check_graph()
+    ex = Index("leven", method="seq_search", data_type=DataKind.STRING, dist_type=DistKind.INT, device="cuda")
+    ex.add_string_batch(corpus[:n2])
+    dg, _ = ex.knn_query_batch(queries, k)
+    hs.set_query_time_params(Params(efSearch=100))
+    dh, ih = hs.knn_query_batch(queries, k)
+    med = _median_ms(lambda: hs.knn_query_batch(queries, k), reps=3)[0]
+    rec = _tie_recall(dh, dg, k)
+    print(f"[string] hnsw leven {n2} strings, M=16 efConstruction=100 waveSize=1024: build {build_s:.2f} s, "
+          f"check_graph {chk}, tie-aware recall@{k} at efSearch=100 {rec:.4f} against the scan, median of 3 "
+          f"{med:.2f} ms; {smi}", flush=True)
+    _require(chk == {"self_links": 0, "dup_links": 0, "oob_links": 0} and rec >= 0.9,
+             lambda: f"hnsw leven: check_graph {chk}, recall {rec}")
+    out["hnsw"] = {"n": n2, "build_s": build_s, "recall": rec, "ms": med}
+    del hs, ex, scan, gold_d
+    torch.cuda.empty_cache()
+    return out
+
+
+def _sqfd_sigs(n: int, seed: int, d: int = 8):
+    """n seeded JSON signatures of 8-16 clusters in R^d, and their arrays."""
+    rng = np.random.default_rng(seed)
+    sigs = []
+    for _ in range(n):
+        nc = int(rng.integers(8, 17))
+        sigs.append((rng.random(nc), rng.standard_normal((nc, d))))
+    txt = [json.dumps({"weights": w.tolist(), "centers": c.tolist()}) for w, c in sigs]
+    return txt, sigs
+
+
+def _sqfd_f64(f, qsigs, xsigs, blk: int = 1000):
+    """Float64 SQFD of every (query, corpus) signature pair, in numpy:
+    sqrt(s_q + s_x - 2 w_q^T f(L2(c_q, c_x)) w_x); padding clusters carry
+    weight 0."""
+    def pack(sigs):
+        cm = max(w.shape[0] for w, _ in sigs)
+        w = np.zeros((len(sigs), cm))
+        c = np.zeros((len(sigs), cm, sigs[0][1].shape[1]))
+        for i, (wi, ci) in enumerate(sigs):
+            w[i, :wi.shape[0]], c[i, :ci.shape[0]] = wi, ci
+        return w, c
+
+    def l2(a, b):  # [A, d] x [B, d] -> [A, B]
+        return np.sqrt(np.maximum((a * a).sum(1)[:, None] + (b * b).sum(1)[None, :] - 2 * a @ b.T, 0.0))
+
+    def self_terms(w, c):
+        return np.array([wi @ f(l2(ci, ci)) @ wi for wi, ci in zip(w, c)])
+
+    (qw, qc), (xw, xc) = pack(qsigs), pack(xsigs)
+    nq, cq, d = qc.shape
+    cx = xc.shape[1]
+    qs, xs = self_terms(qw, qc), self_terms(xw, xc)
+    out = np.zeros((nq, len(xsigs)))
+    for s in range(0, len(xsigs), blk):
+        e = min(s + blk, len(xsigs))
+        fd = f(l2(qc.reshape(nq * cq, d), xc[s:e].reshape((e - s) * cx, d))).reshape(nq, cq, e - s, cx)
+        cross = np.einsum("qi,qixj,xj->qx", qw, fd, xw[s:e])
+        out[:, s:e] = np.sqrt(np.maximum(qs[:, None] + xs[None, s:e] - 2 * cross, 0.0))
+    return out
+
+
+def _check_f64(label, d, ids, ref, k: int):
+    """Ids a top-k of the float64 distances ``ref`` up to ties, every
+    distance within rtol 5e-3 / atol 1e-5 of its id's f64 value."""
+    kth = np.sort(ref, axis=1)[:, k - 1:k]
+    got = ref[np.arange(ref.shape[0])[:, None], ids]
+    tol = 1e-5 + 5e-3 * np.abs(got)
+    _require(bool((ids >= 0).all() and (np.abs(d - got) <= tol).all()), lambda: f"{label}: a distance off its f64 value")
+    _require(bool((got <= kth + 1e-5 + 5e-3 * np.abs(kth)).all()), lambda: f"{label}: an id outside the f64 top-{k}")
+    return int(np.sum(ids != np.argsort(ref, axis=1, kind="stable")[:, :k]))
+
+
+def _phase_small(smi, corpus, queries):
+    """(d) [sqfd]: the three SQFD names over 10,000 signatures of 8-16
+    clusters in d=8, sparse_dense_fusion over 10,000 objects of a 128-d
+    dense and a sparse_like component, range on one of each, each against a
+    float64 numpy oracle; dummy with doSeqSearch=1 over 20,000 of phase 4's
+    rows. Returns the numbers it printed."""
+    import scipy.sparse as sps
+    import torch
+    from tpu_knn_torch import DataKind, Index, Params
+    from tpu_knn_torch.eval.datasets import sparse_like
+    from tpu_knn_torch.ops import groupmin as GM
+
+    n, nq, k = 10_000, 64, K
+    out = {}
+    xt, xs = _sqfd_sigs(n, 3)
+    qt, qs = _sqfd_sigs(nq, 4)
+    fns = {"sqfd_minus_func": lambda d: -d, "sqfd_heuristic_func": lambda d: 1.0 / (1.0 + d),
+           "sqfd_gaussian_func": lambda d: np.exp(-1.0 * d * d)}
+    for name, f in fns.items():
+        ix = Index(name, Params(alpha=1.0), method="seq_search", data_type=DataKind.STRING, device="cuda")
+        ix.add_string_batch(xt)
+        d, i = ix.knn_query_batch(qt, k)
+        med = _median_ms(lambda: ix.knn_query_batch(qt, k), reps=3)[0]
+        ref = _sqfd_f64(f, qs, xs)
+        diff = _check_f64(f"{name} kNN", d, i, ref, k)
+        rng_line = ""
+        if name == "sqfd_gaussian_func":
+            radius = float(np.median(np.sort(ref, axis=1)[:, k - 1]))
+            res = ix.range_query_batch(qt, radius)
+            for r, rr in enumerate(res):
+                want = set(np.nonzero(ref[r] <= radius)[0].tolist())
+                sym = set(rr.ids.tolist()) ^ want
+                _require(all(abs(ref[r, j] - radius) <= 5e-3 * radius for j in sym),
+                         lambda: f"{name} range: query {r} differs from the f64 oracle beyond the radius's bound")
+            rng_line = f"; range at {radius:.4f}: id sets as the f64 oracle's up to its bound"
+        out[name] = {"ms": med}
+        print(f"[sqfd] {name} seq_search {n} signatures (8-16 clusters, d=8), {nq} queries: median of 3 {med:.2f} ms, "
+              f"ids against the f64 oracle: {diff} differ on ties{rng_line}; {smi}", flush=True)
+        del ix
+    # sparse_dense_fusion: one 128-d dense and one sparse_like component
+    sp = sparse_like(n + nq, vocab=30_000, nnz=64, seed=0)
+    dense = corpus[:n + nq] / 100.0
+    objs = [json.dumps({"dense": [dense[j].tolist()], "sparse": [[np.asarray(sp[j][0]).tolist(),
+                                                                   np.asarray(sp[j][1], np.float64).tolist()]]})
+            for j in range(n + nq)]
+    fx = Index("sparse_dense_fusion", Params(indexWeights="1.0,1.0", queryWeights="0.5,2.0"), method="seq_search",
+               data_type=DataKind.STRING, device="cuda")
+    fx.add_string_batch(objs[:n])
+    d, i = fx.knn_query_batch(objs[n:], k)
+    med = _median_ms(lambda: fx.knn_query_batch(objs[n:], k), reps=3)[0]
+    csr = sps.csr_matrix((np.concatenate([np.asarray(v, np.float64) for _, v in sp]),
+                          np.concatenate([np.asarray(c) for c, _ in sp]) - 1,
+                          np.concatenate([[0], np.cumsum([len(c) for c, _ in sp])])), shape=(n + nq, 30_000))
+    dd = dense.astype(np.float64)
+    ref = -(0.5 * (dd[n:] @ dd[:n].T) + 2.0 * (csr[n:] @ csr[:n].T).toarray())
+    diff = _check_f64("sparse_dense_fusion kNN", d, i, ref, k)
+    radius = float(np.median(np.sort(ref, axis=1)[:, k - 1]))
+    res = fx.range_query_batch(objs[n:], radius)
+    for r, rr in enumerate(res):
+        sym = set(rr.ids.tolist()) ^ set(np.nonzero(ref[r] <= radius)[0].tolist())
+        _require(all(abs(ref[r, j] - radius) <= 5e-3 * abs(radius) + 1e-5 for j in sym),
+                 lambda: f"fusion range: query {r} differs from the f64 oracle beyond the radius's bound")
+    out["sparse_dense_fusion"] = {"ms": med}
+    print(f"[sqfd] sparse_dense_fusion seq_search {n} objects (128-d dense + sparse_like), {nq} queries: median of 3 "
+          f"{med:.2f} ms, ids against the f64 oracle: {diff} differ on ties; range at {radius:.4f}: id sets as the "
+          f"f64 oracle's up to its bound; {smi}", flush=True)
+    del fx
+    # dummy: doSeqSearch=1 is seq_search, bit for bit, on the f32 kernel
+    n3 = 20_000
+    ref_ix = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    ref_ix.add_dense_batch(corpus[:n3])
+    d0, i0 = ref_ix.knn_query_batch(queries, k)
+    dm = Index("l2", Params(dim=DIM), method="dummy", device="cuda")
+    dm.add_dense_batch(corpus[:n3])
+    dm.build_index(Params(doSeqSearch=1))
+    GM.reset_launches()
+    d1, i1 = dm.knn_query_batch(queries, k)
+    launched = GM.launches["float32"]
+    _require(np.array_equal(d0, d1) and np.array_equal(i0, i1) and launched > 0,
+             lambda: f"dummy doSeqSearch=1: results differ from seq_search or groupmin_f32 not launched ({launched})")
+    empty = Index("l2", Params(dim=DIM), method="dummy", device="cuda")
+    empty.add_dense_batch(corpus[:n3])
+    de, ie = empty.knn_query_batch(queries[:8], k)
+    _require(bool((ie == -1).all() and np.isinf(de).all()), lambda: "dummy without doSeqSearch returned results")
+    print(f"[sqfd] dummy doSeqSearch=1 over {n3} rows: bit-equal to seq_search, groupmin_f32 launched {launched}; "
+          f"without it every result empty; {smi}", flush=True)
+    out["dummy_launches"] = launched
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3136,7 +3575,7 @@ def main() -> int:
     sn = _phase_sparse(smi)
     t0 = _phase("sparse", t0)
     print("[sparse] " + json.dumps({
-        "scan_100k": sn["scan_100k"], "hnsw_exact": sn["hnsw_exact"], "hnsw_default": sn["hnsw_default"],
+        "scan_100k": sn["scan_100k"], "hnsw_default": sn["hnsw_default"],
         "scan_1m": sn["scan_1m"], "side": sn["side"], "wave_profile": sn["wave_profile"], "r_ulp": sn["r_ulp"]},
         default=float) + f"; {smi}", flush=True)
 
@@ -3148,10 +3587,26 @@ def main() -> int:
     print("[embed] " + json.dumps(em, default=float) + f"; {smi}", flush=True)
     na = _phase_napp(smi, corpus, queries, i10)
     print("[napp] " + json.dumps(na, default=float) + f"; {smi}", flush=True)
+    t0 = _phase("bits, word_embed, napp", t0)
+
+    # ---- 20. VP-tree, sw-graph, the string spaces, SQFD, fusion and dummy ----
+    # (a) and (d) read phase 4's rows, so they run before the corpus is freed
+    vt = _phase_vptree(smi, corpus, queries, i10, d10)
+    print("[vptree] " + json.dumps(vt, default=float) + f"; {smi}", flush=True)
+    sm = _phase_small(smi, corpus, queries)
+    print("[sqfd] " + json.dumps(sm, default=float) + f"; {smi}", flush=True)
     del corpus, queries
+    t0 = _phase("vptree and the small names", t0)
+    sg = _phase_swgraph(smi)
+    print("[swgraph] " + json.dumps(sg, default=float) + f"; {smi}", flush=True)
+    st = _phase_string(smi)
+    print("[string] " + json.dumps(st, default=float) + f"; {smi}", flush=True)
+    t0 = _phase("sw-graph and the string spaces", t0)
+
+    # ---- 19 (e). the inverted index, after the 1M dense rows are freed ----
     iv = _phase_invindx(smi)
     print("[invindx] " + json.dumps(iv, default=float) + f"; {smi}", flush=True)
-    t0 = _phase("bits, word_embed, napp and invindx", t0)
+    t0 = _phase("invindx", t0)
 
     src_wgmma = "tpu_knn_torch/csrc/groupmin_wgmma.cu"
     rows = [

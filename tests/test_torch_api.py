@@ -126,15 +126,19 @@ def test_registry_parity():
     assert tpu_knn_torch.clear_upload_cache() == 0
     assert TR.SPACE_TYPES_WHITELIST == JR.SPACE_TYPES_WHITELIST
     assert TR.SPACE_ALIASES == JR.SPACE_ALIASES
-    # every dense, sparse and bit space of tpu_knn and word_embed; the
-    # string, fusion and sqfd spaces come in later slices
-    ported = sorted(n for n, c in JR._SPACES.items() if c.__module__ in (
-        "tpu_knn.spaces.dense", "tpu_knn.spaces.sparse", "tpu_knn.spaces.bits", "tpu_knn.spaces.embed"))
-    assert tpu_knn_torch.known_spaces() == ported and len(ported) == 30 + 16 + 2 + 1
-    assert set(tpu_knn_torch.known_spaces()) <= set(tpu_knn.known_spaces())
-    assert tpu_knn_torch.known_methods() == ["brute_force", "hnsw", "napp", "pivot_neighb_invindx",
-                                             "seq_search", "simple_invindx"]
-    assert set(tpu_knn_torch.known_methods()) <= set(tpu_knn.known_methods())
+    # the whole registry: every space and method name of tpu_knn, each from
+    # the port's module of the same name
+    assert tpu_knn_torch.known_spaces() == tpu_knn.known_spaces() and len(tpu_knn.known_spaces()) == 55
+    assert tpu_knn_torch.known_methods() == tpu_knn.known_methods()
+    assert tpu_knn_torch.known_methods() == ["brute_force", "dummy", "hnsw", "napp", "pivot_neighb_invindx",
+                                             "seq_search", "simple_invindx", "small_world_rand", "sw-graph",
+                                             "vptree"]
+    for name, ctor in JR._SPACES.items():
+        assert TR._SPACES[name].__module__ == ctor.__module__.replace("tpu_knn.", "tpu_knn_torch.", 1), name
+    for name, ctor in JR._METHODS.items():
+        assert TR._METHODS[name].__module__ == ctor.__module__.replace("tpu_knn.", "tpu_knn_torch.", 1), name
+    for attr in ("delete_batch", "_mark_dirty"):
+        assert callable(getattr(tpu_knn_torch.Index, attr)) and callable(getattr(tpu_knn.Index, attr))
     for name in ("l2", "cosine", "sparse_l2", "no_such_space"):
         assert tpu_knn_torch.is_valid_space_type(name) == tpu_knn.is_valid_space_type(name)
 

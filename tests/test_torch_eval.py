@@ -117,3 +117,24 @@ def test_gold_cache_crosses_packages(tmp_path):
             assert d.dtype == wd.dtype and i.dtype == wi.dtype
     with pytest.raises(DataIOError):
         GoldStandard.load_cache(str(tmp_path / "nothing.npz"))
+
+
+def test_tune_hnsw_ef_equals_tpu_knn():
+    """eval/tune.py's HNSW tuner on a graph built alike by both packages
+    (clustered rows, continuous): the same efSearch and recall, the
+    method's efSearch restored afterwards."""
+    import tpu_knn_torch
+    from tpu_knn.eval.tune import tune_hnsw_ef as jtune
+    from tpu_knn_torch.eval.tune import tune_hnsw_ef as ttune
+
+    x = clustered(800, 16, n_clusters=30, seed=11)
+    out = []
+    for pkg, tune, kw in ((tpu_knn, jtune, {}), (tpu_knn_torch, ttune, {"device": "cpu"})):
+        idx = pkg.Index("l2", pkg.Params(dim=16), **kw)
+        idx.add_dense_batch(x)
+        idx.build_index(pkg.Params(M=6, efConstruction=20, waveSize=64))
+        old = idx.method.ef_search
+        out.append(tune(idx.method, idx.store, k=5, desired_recall=0.97, sample=60))
+        assert idx.method.ef_search == old
+    assert out[0]["efSearch"] == out[1]["efSearch"] and out[0]["met"] == out[1]["met"]
+    assert out[0]["recall"] == pytest.approx(out[1]["recall"], abs=1e-9)

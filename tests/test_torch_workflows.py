@@ -2,8 +2,8 @@
 replayed against tpu_knn_torch on the CPU, with the default method (hnsw, as
 the tpu_knn test runs them) and with method="seq_search". Workflow 3 (uint8)
 is below for hnsw and in tests/test_torch_sift.py
-test_3_uint8_vector_workflow_on_the_port for seq_search; workflow 4
-(strings) waits for its space."""
+test_3_uint8_vector_workflow_on_the_port for seq_search; workflow 4 is the
+string workflow (leven + Int)."""
 
 import math
 import os
@@ -91,6 +91,24 @@ def test_3_uint8_vector_workflow_default_method():
     res = idx.knn_query(descs[4], 3)
     assert res.ids[0] == 4 and res.dists[0] == 0
     assert (res.dists == np.rint(res.dists)).all()
+
+
+def _workflow_4(method):
+    """lib.zig:1381 'Index string data workflow' (leven + Int)."""
+    idx = _mk("leven", None, method, data_type=DataKind.STRING, dist_type=DistKind.INT)
+    idx.add_string_batch(["hello", "help", "world"])
+    res = idx.knn_query("hello", 2)
+    assert res.ids[0] == 0 and res.dists[0] == 0
+    assert res.ids[1] == 1 and res.dists[1] == 2  # hello -> help
+    assert idx.borrow_data_point_string(2) == "world"
+
+
+def test_4_string_workflow():
+    _workflow_4("seq_search")
+
+
+def test_4_string_workflow_default_method():
+    _workflow_4(None)
 
 
 def _workflow_5(method):

@@ -2,10 +2,13 @@
 
 The same public surface as tpu_knn (``Index``, ``Params``, the data and
 distance kinds, the 15-code error set and the registries), with tensors
-on an explicit ``device``. Ported so far: every dense, sparse and bit
-space and ``word_embed``, the exact scan (``method="seq_search"``), HNSW
-(the default method), NAPP (``napp``/``pivot_neighb_invindx``) and the
-inverted index (``simple_invindx``). The scan's
+on an explicit ``device``. Every space and method of tpu_knn's registry
+is ported: the dense, sparse, bit, string (``leven``, ``normleven``),
+SQFD and sparse-dense fusion spaces and ``word_embed``; the exact scan
+(``method="seq_search"``), ``dummy``, HNSW (the default method),
+``sw-graph`` with incremental add and delete, ``vptree``, NAPP
+(``napp``/``pivot_neighb_invindx``) and the inverted index
+(``simple_invindx``). The scan's
 pass 1 over a space with an affine factored form is a CUDA kernel written
 for sm_90a at each of tpu_knn's precision tiers
 (ops/groupmin.py; csrc/groupmin.cu for f32, csrc/groupmin_wgmma_i8.cu for

@@ -17,16 +17,20 @@ Jensen-Shannon, alpha-beta and Renyi divergences, ``l2sqr_sift`` and
 ``dummy``), every sparse one (the scalar products with their ``_fast``
 and ``_bin_fast`` variants, the Lp family and jaccard), the bit spaces
 ``bit_hamming`` and ``bit_jaccard`` (0/1 uint8 rows, or packed words
-through :meth:`Index.add_bit_batch_packed`) and ``word_embed`` (text
-lines "word v1 ... vd"; queries may be bare words); the exact scan
+through :meth:`Index.add_bit_batch_packed`), ``word_embed`` (text
+lines "word v1 ... vd"; queries may be bare words), the string spaces
+``leven`` and ``normleven``, the SQFD spaces and ``sparse_dense_fusion``
+(JSON objects through add_string_batch); every method: the exact scan
 (``seq_search``/``brute_force``) with every pass-1 precision tier and
-every ``precision``, ``hnsw`` (the default method) with the wave
-build, ``napp``/``pivot_neighb_invindx`` and ``simple_invindx``; kNN,
-async kNN and range queries; save/load in tpu_knn's format v3
+every ``precision``, ``dummy``, ``hnsw`` (the default method),
+``sw-graph``/``small_world_rand`` (rows added after the build are
+absorbed in place, :meth:`Index.delete_batch` removes rows),
+``vptree``, ``napp``/``pivot_neighb_invindx`` and ``simple_invindx``;
+kNN, async kNN and range queries; save/load in tpu_knn's format v3
 (io/persist.py), so a file either package writes loads in the other.
 Sparse query batches are lists of (ids, values) or SparsePoint, of any
-length; string batches lists of str or bytes. ``mesh=`` and the other
-methods come in later slices (ROADMAP.md).
+length; string batches lists of str or bytes. ``mesh=`` comes in a later
+slice (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -166,19 +170,21 @@ class Index:
         labels: Sequence[int] | None = None,
     ) -> None:
         self._check_dim(np.asarray(vectors))
+        old = len(self.store)
         self.store.add_dense_batch(vectors, ids, labels)
-        # added data invalidates the index; the next query rebuilds it
-        self.built = False
+        self._mark_dirty(old)
 
     def add_uint8_batch(self, vectors: Any, ids: Sequence[int] | None = None) -> None:
+        old = len(self.store)
         self.store.add_uint8_batch(vectors, ids)
-        self.built = False
+        self._mark_dirty(old)
 
     def add_sparse_batch(self, points, ids: Sequence[int] | None = None) -> None:
         """Sparse points as (ids, values) pairs or SparsePoint: ids 1-based
         and strictly increasing; object ids default to 1-based positions."""
+        old = len(self.store)
         self.store.add_sparse_batch(points, ids)
-        self.built = False
+        self._mark_dirty(old)
 
     def add_bit_batch_packed(
         self,
@@ -195,8 +201,16 @@ class Index:
         self.add_uint8_batch(unpack_bit_vectors(words, n_bits), ids)
 
     def add_string_batch(self, strings: Sequence[str | bytes], ids: Sequence[int] | None = None) -> None:
+        old = len(self.store)
         self.store.add_string_batch(strings, ids)
-        self.built = False
+        self._mark_dirty(old)
+
+    def delete_batch(self, positions: Sequence[int], strategy: str = "none") -> None:
+        """Incremental deletion by store position; supported only by
+        methods with incremental maintenance (reference: only sw-graph,
+        small_world_rand.cc DeleteBatch)."""
+        self._ensure_built()
+        self.method.delete_batch(positions, strategy)
 
     def _check_dim(self, arr: np.ndarray) -> None:
         want = self.space_params.get("dim")
@@ -204,6 +218,17 @@ class Index:
             d = arr.shape[-1]
             if int(want) != d:
                 raise InvalidArgumentError(f"dim param is {want} but batch has dim {d}")
+
+    def _mark_dirty(self, old_count: int) -> None:
+        # A method with incremental maintenance (sw-graph) absorbs rows added
+        # after the build in place (reference: AddBatch,
+        # small_world_rand.cc:141); for every other method added data
+        # invalidates the index and the next query rebuilds it (the reference
+        # forbids mutation after the build instead, index.h:35).
+        if self.built and self.method is not None and self.method.supports_incremental:
+            self.method.add_batch(self.store, range(old_count, len(self.store)))
+            return
+        self.built = False
 
     # ---------------- build ----------------
 

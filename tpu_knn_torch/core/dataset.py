@@ -250,6 +250,26 @@ class SparseDeviceData:
         return [t for t in out if isinstance(t, torch.Tensor)]
 
 
+@dataclass
+class StringDeviceData:
+    """Encoded string corpus (counterpart of tpu_knn's StringDeviceData):
+    a byte matrix for the batched Levenshtein DP (ops/edit.py), one row a
+    string, zero past its length. The SQFD and fusion spaces keep their
+    own row tensors in ``extra`` and an unused one-column ``chars``. All
+    tensors live on one device."""
+
+    chars: torch.Tensor  # i32[N_pad, L_max]
+    length: torch.Tensor  # i32[N_pad]
+    ids: torch.Tensor  # i32[N_pad], -1 on padding rows
+    count: int
+    extra: dict = field(default_factory=dict)  # "pad": f32[N_pad]; "row_mask" after sw-graph deletions
+
+    def tensors(self):
+        """Every tensor the corpus holds (for memory accounting)."""
+        out = [self.chars, self.length, self.ids, *self.extra.values()]
+        return [t for t in out if isinstance(t, torch.Tensor)]
+
+
 def dense_data_from_numpy(vecs, ids, count: int, dim: int, row_term, pad, device,
                           extra: dict | None = None) -> DenseDeviceData:
     """Build a :class:`DenseDeviceData` on ``device`` from host arrays, e.g.

@@ -17,7 +17,11 @@ data, no v3 layout) raise :class:`DataIOError`.
 A sparse store is saved as its row lengths, concatenated element ids and
 values (``sparse_len``, ``sparse_ids``, ``sparse_vals``), a string store as
 its byte lengths and concatenated UTF-8 bytes (``str_len``, ``str_bytes``),
-as tpu_knn saves them.
+as tpu_knn saves them. The ``state_*`` arrays are the method's
+``state_arrays()`` under tpu_knn's names: HNSW's levels (and sw-graph's
+int8 ``deleted`` mask), VP-tree's ``pivot_pos``, ``medians``,
+``leaf_members``, ``leaf_of``, ``leaf_count`` and ``meta``, NAPP's pivots
+and prefixes.
 """
 
 from __future__ import annotations

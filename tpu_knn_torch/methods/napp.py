@@ -50,24 +50,10 @@ from ..utils.logging import log
 from ..utils.rng import np_rng
 from .base import Method, stream_range_results
 from .seq_search import _densify, _ids_of, _nq
+from .vptree import _gather_xc
 
 #: Corpus rows scored per step of the prefix build (tpu_knn's step).
 PREFIX_STEP = 4096
-
-
-def _gather_xc(space, data, rows: torch.Tensor) -> dict:
-    """Corpus slice at arbitrary row indices, in block()'s xc format
-    (tpu_knn/methods/vptree.py _gather_xc)."""
-    c = space.corpus_dict(data)
-    r2, pad2, extras2 = G.gather_rows(c, rows[None, :])
-    extras2 = G.inject_term(space, r2, extras2)
-    xc = {"x": r2[0], "pad": pad2[0]}
-    xc.update({k: v[0] for k, v in extras2.items()})
-    if "vocab_mark" in c:
-        # the vocabulary width rides along ungathered, so sparse blocks
-        # against the gathered rows take the densified-table path
-        xc["vocab_mark"] = c["vocab_mark"]
-    return xc
 
 
 def _stream_topk(chunk_dists, n: int, step: int, b: int, k: int, dev, nan_free: bool = False):

@@ -65,8 +65,17 @@ def _ids_of(data, pos: torch.Tensor) -> torch.Tensor:
 
 
 def _nq(qenc: dict) -> int:
-    """Queries in an encoded batch ('q' dense, 'qcol' sparse)."""
-    return (qenc["q"] if "q" in qenc else qenc["qcol"]).shape[0]
+    """Queries in an encoded batch ('q' dense, 'qcol' sparse, else the first
+    entry with a batch axis: 'qc' strings, 'qw' SQFD, 'q_d0' fusion)."""
+    if "q" in qenc or "qcol" in qenc:
+        return (qenc["q"] if "q" in qenc else qenc["qcol"]).shape[0]
+    return next(v for v in qenc.values() if v.ndim >= 1).shape[0]
+
+
+def _slice_qenc(qenc: dict, nq: int, b0: int, b1: int) -> dict:
+    """Queries [b0, b1) of an encoded batch of ``nq``; entries without the
+    batch axis (0-d constants such as l2sqr_sift's ``_dimconst``) go whole."""
+    return {k: (v[b0:b1] if v.ndim >= 1 and v.shape[0] == nq else v) for k, v in qenc.items()}
 
 
 def _densify(space, qenc: dict, data) -> dict:
@@ -220,7 +229,7 @@ def _pass1_block(space, qenc, data, chunk: int, precision: str) -> torch.Tensor:
     """Group mins f32[Q, N_pad/128] of a space with no affine form: a scan
     of ``space.block`` at ``precision`` over ``chunk``-row slices, each
     reduced to its 128-row group mins (tpu_knn's pass1_jnp)."""
-    nq = qenc["q"].shape[0]
+    nq = _nq(qenc)
     mins = []
     for ci in range(data.ids.shape[0] // chunk):
         d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
@@ -265,7 +274,7 @@ def _pass2(space, qenc, data, gsel: torch.Tensor, k: int):
     dks, poss = [], []
     for b0 in range(0, nq, _PASS2_QBLK):
         b1 = min(b0 + _PASS2_QBLK, nq)
-        qe = {key: (v[b0:b1] if v.ndim >= 1 and v.shape[0] == nq else v) for key, v in qenc.items()}
+        qe = _slice_qenc(qenc, nq, b0, b1)
         rows, pad, extras, cols = gather_row_groups(corpus, gsel[b0:b1], T.GROUP)
         d = score_gathered(space, qe, rows, pad, extras)  # [B, kg*128]
         dk, sel = T.smallest_k(d, k)

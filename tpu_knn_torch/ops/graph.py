@@ -146,7 +146,8 @@ def gather_row_groups(corpus: dict, gsel: torch.Tensor, group: int = 128):
     """Per-query *group* gather: gsel [B, KG] indexes contiguous
     ``group``-row blocks, so each gathered granule is group*rowbytes of
     sequential memory (64KB for f32[128,128] rows) instead of one row.
-    Padding rows are positions >= corpus["count"]. Returns (rows
+    Padding rows are positions >= corpus["count"], or the gathered
+    'row_mask' where a method masks real rows. Returns (rows
     [B, KG*group, D], pad [B, KG*group], extras, cols [B, KG*group]
     corpus positions)."""
     b, kg = gsel.shape
@@ -160,8 +161,10 @@ def gather_row_groups(corpus: dict, gsel: torch.Tensor, group: int = 128):
     rows = expand(corpus["vecs"])
     cols = gsel[:, :, None] * group + torch.arange(group, device=gsel.device)[None, None, :]
     cols = cols.reshape(b, kg * group)
-    # f32 whatever the rows' dtype: an int8 row block (l2sqr_sift) cannot hold +inf
-    pad = torch.where(cols >= corpus["count"], INF, 0.0).to(torch.float32)
+    if "row_mask" in corpus:
+        pad = expand(corpus["row_mask"])
+    else:  # f32 whatever the rows' dtype: an int8 row block (l2sqr_sift) cannot hold +inf
+        pad = torch.where(cols >= corpus["count"], INF, 0.0).to(torch.float32)
     extra_sl = {}
     if corpus.get("term") is not None:
         extra_sl["x_term"] = expand(corpus["term"])

@@ -79,10 +79,14 @@ class Space:
         """Row-indexed corpus tensors for gather-based scoring.
 
         'vecs' is gathered into block()'s ``x`` slot. Padding rows are
-        detected as positions >= 'count'. The per-row term is included
-        only when :meth:`term_from_rows` can't recompute it.
+        detected as positions >= 'count'; a method that masks real rows
+        (sw-graph deletions) installs a 'row_mask' in data.extra, which is
+        gathered instead. The per-row term is included only when
+        :meth:`term_from_rows` can't recompute it.
         """
         c = {"vecs": data.vecs, "count": data.count}
+        if "row_mask" in data.extra:
+            c["row_mask"] = data.extra["row_mask"]
         if getattr(data, "row_term", None) is not None and not self.term_recompute:
             c["term"] = data.row_term
         return c

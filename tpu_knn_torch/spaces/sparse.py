@@ -243,6 +243,8 @@ class SparseSpaceBase(Space):
         along ungathered."""
         out = {"vecs": data.val, "cols": data.col, "len": data.length, "pad": data.extra["pad"],
                "count": data.count}
+        if "row_mask" in data.extra:
+            out["row_mask"] = data.extra["row_mask"]
         if "vocab_mark" in data.extra:
             out["vocab_mark"] = data.extra["vocab_mark"]
         return out
