@@ -230,6 +230,34 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     used; HNSW leven over 10,000 of them (M=16, efConstruction=100; cut
     from 20,000), tie-aware recall@10 at efSearch=100 >= 0.9 against the
     scan.
+21. the CLI and the mesh layer (after 20 (a)-(d), before 19 (e)): (a)
+    [cli] phase 4's 1,000,000 rows written as .fvecs, then
+    tpu_knn_torch.cli.main in-process with --method seq_search --knn 10
+    --maxNumQuery 2048 --testSetQty 1 --device cuda: recall 1,
+    groupmin_f32 launched, the seconds end to end; hnsw (M=16,
+    efConstruction=200, efSearch 20 and 100) over 20,000 of the rows with
+    --queryFile and --saveIndex, then --loadIndex: equal tables; one
+    subprocess ``python -m tpu_knn_torch`` (seq_search, recall 1); (b)
+    [mesh] Index("l2", Params(dim=128), method="seq_search", mesh=4,
+    device="cuda") over phase 4's rows: 4 logical shards on the one card,
+    each scanned on the two-pass route (one groupmin_f32 launch a shard a
+    batch), ids equal to phase 4's except on f32 ties, every distance
+    within rtol 5e-3 of its float64 value, ms a batch (median of 5) in
+    turns with the single-device index, peak memory; range_query_batch at
+    phase 9's radius with the single-device range's id sets; the two-tier
+    merge on make_mesh2(2, 2) equal to the flat merge; (c) [mesh] the
+    default Index("l2", Params(dim=128), mesh=4) over the first 40,000 of
+    HNSW-100k's rows with its 2048 queries (cut from all 100,000 when the
+    whole script passed ~1,050 s; M=16, efConstruction=200,
+    waveSize=1024, stacked waves): build
+    seconds and peak, check_graph zero on every shard, recall@10 against
+    seq_search and qps (best of 3) at efSearch 20 and 100 (>= 0.95 and
+    0.99), save/load bit-identical with mesh_devices 4 in the header; then
+    buildAlgo="nndescent" over 4 x 10,000 rows twice from one seed:
+    check_graph zero, the graphs equal (torch.equal), recall@10 at
+    efSearch=50. The mesh layer and the CLI are torch ops and host code,
+    as they are XLA ops and host code in tpu_knn; the exact scan reaches
+    the f32 kernel.
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -3143,6 +3171,289 @@ def _phase_small(smi, corpus, queries):
     return out
 
 
+# ---------------- phase 21: the CLI and the mesh layer ----------------
+
+
+def _cli_tables(path: str) -> dict:
+    """{title: [row dicts]} of a CLI result file, qps (a timing) dropped."""
+    out, title, head = {}, None, None
+    with open(path) as f:
+        for line in f.read().splitlines():
+            if line.startswith("=== "):
+                title, head = line.strip("= "), None
+                out[title] = []
+            elif title and line and not line.startswith("-"):
+                cells = [c.strip() for c in line.split("  ") if c.strip()]
+                if head is None:
+                    head = cells
+                else:
+                    row = dict(zip(head, cells))
+                    row.pop("qps", None)
+                    out[title].append(row)
+    return out
+
+
+def _phase_cli(smi, corpus, queries):
+    """[cli]: tpu_knn_torch.cli.main in-process over phase 4's 1,000,000 rows
+    written as .fvecs (seq_search, 2048 bootstrap queries, recall 1, the f32
+    kernel launched); hnsw over 20,000 of them with --queryFile, --saveIndex
+    and --loadIndex (equal tables); one ``python -m tpu_knn_torch``
+    subprocess. Returns the numbers it printed."""
+    import os
+    import shutil
+    import tempfile
+
+    from tpu_knn_torch import cli
+    from tpu_knn_torch.io.native import write_vecs
+    from tpu_knn_torch.ops import groupmin as GM
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        big, small, qf = (os.path.join(tmp, f) for f in ("sift1m.fvecs", "sift20k.fvecs", "q.fvecs"))
+        write_vecs(big, corpus)
+        write_vecs(small, corpus[:20_000])
+        write_vecs(qf, queries)
+        base = ["--spaceType", "l2", "--spaceParams", f"dim={DIM}", "--device", "cuda"]
+        res = os.path.join(tmp, "seq.txt")
+        GM.reset_launches()
+        ts = time.perf_counter()
+        rc = cli.main(base + ["--dataFile", big, "--method", "seq_search", "--knn", str(K), "--maxNumQuery",
+                              str(N_QUERIES), "--testSetQty", "1", "--outFile", res])
+        secs = time.perf_counter() - ts
+        launched = GM.launches["float32"]
+        rows = _cli_tables(res)[f"kNN k={K} (method=seq_search, space=l2)"]
+        print(f"[cli] python -m tpu_knn_torch equivalent, seq_search over {len(corpus)} fvecs rows, {N_QUERIES} "
+              f"bootstrap queries, k={K}: rc {rc}, {secs:.2f} s end to end (read, split, two uploads, gold, "
+              f"warm-up, timed run), groupmin_f32 launches {launched}, row {rows[0]}; {smi}", flush=True)
+        _require(rc == 0 and rows[0]["recall"] == "1", lambda: f"cli seq_search: rc {rc}, row {rows[0]}")
+        _require(launched > 0, lambda: "cli seq_search did not launch groupmin_f32")
+        out.update(seq_s=secs, seq_launches=launched)
+
+        hn = base + ["--dataFile", small, "--queryFile", qf, "--method", "hnsw", "--createIndex",
+                     "M=16,efConstruction=200", "--queryTimeParams", "efSearch=20", "--queryTimeParams",
+                     "efSearch=100", "--knn", str(K)]
+        saved, built_txt, loaded_txt = (os.path.join(tmp, f) for f in ("hnsw", "built.txt", "loaded.txt"))
+        ts = time.perf_counter()
+        _require(cli.main(hn + ["--saveIndex", saved, "--outFile", built_txt]) == 0, lambda: "cli hnsw save")
+        t_build = time.perf_counter() - ts
+        ts = time.perf_counter()
+        _require(cli.main(hn + ["--loadIndex", saved, "--outFile", loaded_txt]) == 0, lambda: "cli hnsw load")
+        t_load = time.perf_counter() - ts
+        a, b = _cli_tables(built_txt), _cli_tables(loaded_txt)
+        _require(a == b and a, lambda: f"cli hnsw: the loaded index's table differs: {a} vs {b}")
+        rows = a[f"kNN k={K} (method=hnsw, space=l2)"]
+        print(f"[cli] hnsw over 20,000 rows, --queryFile {N_QUERIES} queries: build+save+sweep {t_build:.2f} s, "
+              f"load+sweep {t_load:.2f} s, equal tables: {rows}; {smi}", flush=True)
+        _require(float(rows[1]["recall"]) >= 0.99, lambda: f"cli hnsw recall at efSearch=100: {rows[1]}")
+        out.update(hnsw_build_s=t_build, hnsw_load_s=t_load, hnsw_rows=rows)
+
+        sub_txt = os.path.join(tmp, "sub.txt")
+        ts = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "tpu_knn_torch"] + base
+                           + ["--dataFile", small, "--queryFile", qf, "--method", "seq_search", "--knn", str(K),
+                              "--outFile", sub_txt], capture_output=True, text=True, timeout=300)
+        t_sub = time.perf_counter() - ts
+        _require(r.returncode == 0, lambda: f"python -m tpu_knn_torch: rc {r.returncode}: {r.stderr[-2000:]}")
+        rows = _cli_tables(sub_txt)[f"kNN k={K} (method=seq_search, space=l2)"]
+        _require(rows[0]["recall"] == "1", lambda: f"python -m tpu_knn_torch: {rows[0]}")
+        print(f"[cli] subprocess python -m tpu_knn_torch --device cuda, seq_search over 20,000 rows: rc 0 in "
+              f"{t_sub:.2f} s, recall {rows[0]['recall']}; {smi}", flush=True)
+        out["subprocess_s"] = t_sub
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _tie_equal(label, d, i, d_ref, i_ref, q_dev, x_dev):
+    """Ids equal the reference's except where the two ids' float64 squared
+    distances lie within twice the f32 norm-identity bound of each other
+    (an f32 tie, as _check_against_oracle defines it). Returns the number of
+    slots that differ."""
+    import torch
+
+    diff = i != i_ref
+    if not diff.any():
+        return 0
+    rows, cols = np.nonzero(diff)
+    q = q_dev[torch.from_numpy(rows).to(q_dev.device)].double()
+    xa = x_dev[torch.from_numpy(i[rows, cols].astype(np.int64)).to(x_dev.device)].double()
+    xb = x_dev[torch.from_numpy(i_ref[rows, cols].astype(np.int64)).to(x_dev.device)].double()
+    ea, eb = ((xa - q) ** 2).sum(1), ((xb - q) ** 2).sum(1)
+    qn = q.norm(dim=1)
+    bound = (q.shape[1] + 3) * U * (qn + torch.maximum(xa.norm(dim=1), xb.norm(dim=1))) ** 2
+    bad = (ea - eb).abs() > 2.0 * bound
+    _require(not bool(bad.any()), lambda: f"{label}: {int(bad.sum())} ids differ beyond f32 ties")
+    return int(diff.sum())
+
+
+def _phase_mesh(smi, corpus, queries, i10, d10):
+    """[mesh]: (b) the sharded exact scan, Index(..., method="seq_search",
+    mesh=4) over phase 4's 1M rows against phase 4's ids, timed in turns
+    with the single-device index, range at phase 9's radius and the
+    two-tier merge; (c) the sharded HNSW over 40,000 of HNSW-100k's rows
+    (stacked waves), recall, check_graph and save/load, then NN-descent
+    over 4 x 10,000 rows twice from one seed. Returns the numbers it
+    printed."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval.datasets import sift_like
+    from tpu_knn_torch.ops import groupmin as GM
+    from tpu_knn_torch.parallel import hnsw_sharded as HS, sharded as SH
+    from tpu_knn_torch.parallel.mesh import make_mesh2
+
+    out = {}
+    dev = torch.device("cuda", 0)
+    # ---- (b) the sharded exact scan ----
+    single = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    single.add_dense_batch(corpus)
+    single.build_index()
+    mesh_ix = Index("l2", Params(dim=DIM), method="seq_search", mesh=4, device="cuda")
+    mesh_ix.add_dense_batch(corpus)
+    torch.cuda.synchronize()
+    tb = time.perf_counter()
+    mesh_ix.build_index()
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - tb
+    torch.cuda.reset_peak_memory_stats()
+    GM.reset_launches()
+    dm, im = mesh_ix.knn_query_batch(queries, K)
+    launched = GM.launches["float32"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = mesh_ix.method
+    phys = len(m.mesh.physical_devices())
+    q_dev = torch.from_numpy(queries).to(dev)
+    x_dev = torch.from_numpy(corpus).to(dev)
+    n_tie = _tie_equal("mesh=4 exact", dm, im, d10, i10, q_dev, x_dev)
+    err = _check_exact_distances("mesh=4 exact", dm, im, q_dev, x_dev)
+    _require(m.last_routes == ["twopass"] * 4 and launched == 4,
+             lambda: f"mesh=4 exact: routes {m.last_routes}, groupmin_f32 launches {launched} (want 4)")
+    times = {"single": [], "mesh": []}
+    for who in ("single", "mesh", "mesh", "single"):
+        ix = single if who == "single" else mesh_ix
+        times[who].append(_median_ms(lambda: ix.knn_query_batch(queries, K), 5)[0])
+    ms_mesh, ms_single = statistics.median(times["mesh"]), statistics.median(times["single"])
+    print(f"[mesh] (b) exact, Index(seq_search, mesh=4) over {len(corpus)} x {DIM}, {N_QUERIES} queries, k={K}: "
+          f"4 shards of {m.data.n_local} rows ({m.data.shards[0].ids.shape[0]} with chunk padding) on {phys} "
+          f"physical device(s), routes {m.last_routes}, groupmin_f32 launches {launched} a batch, build "
+          f"{build_s:.3f} s, peak allocated {peak:.3f} GiB during the query; ids equal phase 4's except {n_tie} "
+          f"slots on f32 ties, max |d - f64| {err:.3g}; ms a batch (median of 5, in turns single, mesh, mesh, "
+          f"single): mesh {times['mesh']}, single {times['single']}; {smi}", flush=True)
+    out.update(build_s=build_s, launches=launched, peak_gib=peak, physical_devices=phys, ms_mesh=ms_mesh,
+               ms_single=ms_single, tie_slots=n_tie)
+
+    # range at phase 9's radius: the single-device range's id sets
+    radius = float(np.median(d10[:, K - 1]))
+    ts = time.perf_counter()
+    got = mesh_ix.range_query_batch(queries, radius)
+    t_range = time.perf_counter() - ts
+    ts = time.perf_counter()
+    want = single.range_query_batch(queries, radius)
+    t_single = time.perf_counter() - ts
+    same = all(np.array_equal(np.sort(a.ids), np.sort(b.ids)) for a, b in zip(got, want))
+    hits = sum(len(r.ids) for r in got)
+    _require(same and len(got) == len(want), lambda: "mesh=4 range: id sets differ from the single-device range")
+    print(f"[mesh] (b) range at radius {radius:.6g}: {hits} hits over {len(got)} queries in {t_range:.3f} s "
+          f"(the single-device range right after: {t_single:.3f} s), id sets equal to the single-device range's; "
+          f"{smi}", flush=True)
+    out.update(range_s=t_range, range_single_s=t_single, range_hits=hits)
+
+    # the two-tier merge on a [2, 2] mesh against the flat merge
+    qenc = m.space.encode_queries(queries)
+    d_flat, i_flat = SH.sharded_exact_knn(m.space, qenc, m.data, K, m.mesh)
+    d_hier, i_hier = SH.sharded_exact_knn_hier(m.space, qenc, m.data, K, make_mesh2(2, 2, device="cuda"))
+    _require(torch.equal(i_flat, i_hier) and torch.equal(d_flat, d_hier),
+             lambda: "two-tier merge differs from the flat merge")
+    print(f"[mesh] (b) two-tier merge on make_mesh2(2, 2): ids and distances equal to the flat merge; {smi}",
+          flush=True)
+    del single, mesh_ix, m, qenc, d_flat, i_flat, d_hier, i_hier, x_dev
+    torch.cuda.empty_cache()
+
+    # ---- (c) the sharded HNSW ----
+    # the first 40,000 of HNSW-100k's rows (cut from all 100,000: the whole
+    # script passed ~1,050 s with them, PERF.md section 4), its 2048 queries
+    n_cell, nq, k = 100_000, N_QUERIES, K
+    n = 40_000
+    xall = sift_like(n_cell + nq, DIM, seed=0)
+    hx, hq = xall[:n], xall[n_cell:]
+    exact = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
+    exact.add_dense_batch(hx)
+    _, gi = exact.knn_query_batch(hq, k)
+    hix = Index("l2", Params(dim=DIM), mesh=4, device="cuda")  # no method=: hnsw
+    hix.add_dense_batch(hx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tb = time.perf_counter()
+    hix.build_index(Params(M=16, efConstruction=200, waveSize=1024, parallelBuild=1))
+    torch.cuda.synchronize()
+    hb = time.perf_counter() - tb
+    hpeak = torch.cuda.max_memory_allocated() / 2**30
+    _require(isinstance(hix.method, HS.ShardedHnsw), lambda: f"mesh=4 hnsw built {type(hix.method)}")
+    chk = hix.method.check_graph()
+    zero = {"self_links": 0, "dup_links": 0, "oob_links": 0}
+    _require(all(c == zero for c in chk), lambda: f"mesh=4 hnsw check_graph {chk}")
+    rows = {}
+    for ef, floor in ((20, 0.95), (100, 0.99)):
+        hix.set_query_time_params(Params(efSearch=ef))
+        d, i = hix.knn_query_batch(hq, k)
+        best = min(_median_ms(lambda: hix.knn_query_batch(hq, k), 1)[0] for _ in range(3))
+        rec = _recall_at(i, gi, k)
+        rows[ef] = {"recall": rec, "ms": best, "qps": nq / best * 1e3}
+        _require(rec >= floor, lambda: f"mesh=4 hnsw recall@{k} {rec} < {floor} at efSearch={ef}")
+    print(f"[mesh] (c) hnsw, Index(l2, mesh=4) over {n} x {DIM} (4 shards of {n // 4}, M=16, efConstruction=200, "
+          f"waveSize=1024, stacked waves): build {hb:.2f} s, peak allocated {hpeak:.3f} GiB, check_graph zero on "
+          f"every shard; recall@{k} and qps (best of 3) {json.dumps(rows)}; {smi}", flush=True)
+    out.update(hnsw_build_s=hb, hnsw_peak_gib=hpeak, hnsw=rows)
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    try:
+        p = os.path.join(tmp, "sh")
+        hix.set_query_time_params(Params(efSearch=100))
+        d0, i0 = hix.knn_query_batch(hq, k)
+        hix.save(p)
+        with np.load(p + ".idx.npz") as z:
+            header = json.loads(bytes(z["__header__"].tobytes()).decode())
+        back = Index.load(p, device="cuda")
+        back.set_query_time_params(Params(efSearch=100))
+        d1, i1 = back.knn_query_batch(hq, k)
+        _require(header["mesh_devices"] == 4 and np.array_equal(d0, d1) and np.array_equal(i0, i1),
+                 lambda: f"mesh=4 hnsw save/load: header mesh_devices {header['mesh_devices']}, results differ")
+        print(f"[mesh] (c) save/load: mesh_devices {header['mesh_devices']} in the header, results bit-identical; "
+              f"{smi}", flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del hix, back, exact
+    torch.cuda.empty_cache()
+
+    # NN-descent per shard over 4 x 10,000 rows, twice from one seed
+    states, tn = [], []
+    for _ in range(2):
+        nix = Index("l2", Params(dim=DIM), mesh=4, device="cuda")
+        nix.add_dense_batch(hx)
+        tb = time.perf_counter()
+        nix.build_index(Params(M=16, efConstruction=100, buildAlgo="nndescent"))
+        torch.cuda.synchronize()
+        tn.append(time.perf_counter() - tb)
+        chk = nix.method.check_graph()
+        _require(all(c == zero for c in chk), lambda: f"mesh=4 nndescent check_graph {chk}")
+        states.append(nix.method.state_arrays())
+    same = states[0].keys() == states[1].keys() and all(
+        torch.equal(torch.from_numpy(np.asarray(states[0][key])), torch.from_numpy(np.asarray(states[1][key])))
+        for key in states[0])
+    _require(same, lambda: "mesh=4 nndescent: two builds from one seed differ")
+    nix.set_query_time_params(Params(efSearch=50))
+    rec4 = _recall_at(nix.knn_query_batch(hq, k)[1], gi, k)  # the same 40,000 rows
+    print(f"[mesh] (c) nndescent, mesh=4 over 4 x 10,000 rows: builds {tn[0]:.2f} s and {tn[1]:.2f} s, check_graph "
+          f"zero on every shard, the two graphs equal (torch.equal); recall@{k} at efSearch=50 {rec4:.4f}; {smi}",
+          flush=True)
+    out.update(nnd_build_s=tn, nnd_recall=rec4)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3595,13 +3906,22 @@ def main() -> int:
     print("[vptree] " + json.dumps(vt, default=float) + f"; {smi}", flush=True)
     sm = _phase_small(smi, corpus, queries)
     print("[sqfd] " + json.dumps(sm, default=float) + f"; {smi}", flush=True)
-    del corpus, queries
     t0 = _phase("vptree and the small names", t0)
     sg = _phase_swgraph(smi)
     print("[swgraph] " + json.dumps(sg, default=float) + f"; {smi}", flush=True)
     st = _phase_string(smi)
     print("[string] " + json.dumps(st, default=float) + f"; {smi}", flush=True)
     t0 = _phase("sw-graph and the string spaces", t0)
+
+    # ---- 21. the CLI and the mesh layer (phase 4's rows, then freed) ----
+    torch.cuda.empty_cache()
+    cl = _phase_cli(smi, corpus, queries)
+    print("[cli] " + json.dumps(cl, default=float) + f"; {smi}", flush=True)
+    t0 = _phase("cli", t0)
+    ms_ = _phase_mesh(smi, corpus, queries, i10, d10)
+    print("[mesh] " + json.dumps(ms_, default=float) + f"; {smi}", flush=True)
+    del corpus, queries
+    t0 = _phase("mesh", t0)
 
     # ---- 19 (e). the inverted index, after the 1M dense rows are freed ----
     iv = _phase_invindx(smi)

@@ -169,8 +169,11 @@ def test_cuda_device_without_cuda_fails_loudly(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(TE.InvalidArgumentError, match="cuda"):
         tpu_knn_torch.Index("l2", tpu_knn_torch.Params(dim=4), method="seq_search")
-    with pytest.raises(TE.InvalidArgumentError, match="mesh"):
-        tpu_knn_torch.Index("l2", tpu_knn_torch.Params(dim=4), method="seq_search", device="cpu", mesh=2)
+    with pytest.raises(TE.InvalidArgumentError, match="cuda"):
+        tpu_knn_torch.Index("l2", tpu_knn_torch.Params(dim=4), method="seq_search", mesh=4)
+    # mesh= is for hnsw and seq_search/brute_force only, as in tpu_knn
+    with pytest.raises(TE.InvalidArgumentError, match="distributed"):
+        tpu_knn_torch.Index("l2", tpu_knn_torch.Params(dim=4), method="napp", device="cpu", mesh=2)
 
 
 def test_auto_rebuild_after_add():

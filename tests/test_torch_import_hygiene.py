@@ -44,3 +44,28 @@ def test_sources_never_import_jax_or_tpu_knn():
             assert not (s.startswith(("import jax", "from jax"))
                         or s.startswith(("import tpu_knn.", "from tpu_knn.", "from tpu_knn "))
                         or s == "import tpu_knn"), f"{path}: {s}"
+
+
+def test_cli_eval_and_mesh_modules_import_clean():
+    """The CLI, the experiment harness and the mesh layer: each imports
+    alone with no jax, no tpu_knn and no CUDA context, and
+    ``python -m tpu_knn_torch --help`` runs."""
+    mods = ["tpu_knn_torch.cli", "tpu_knn_torch.__main__", "tpu_knn_torch.eval.experiments",
+            "tpu_knn_torch.eval.report", "tpu_knn_torch.parallel.mesh", "tpu_knn_torch.parallel.sharded",
+            "tpu_knn_torch.parallel.hnsw_sharded"]
+    for mod in mods:
+        code = (
+            "import sys, importlib, torch\n"
+            f"importlib.import_module({mod!r})\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
+            "       or m == 'tpu_knn' or m.startswith('tpu_knn.')]\n"
+            "assert not bad, bad\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('clean')\n"
+        )
+        r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                           cwd=str(PKG.parent))
+        assert r.returncode == 0 and "clean" in r.stdout, (mod, (r.stdout + r.stderr)[-2000:])
+    r = subprocess.run([sys.executable, "-m", "tpu_knn_torch", "--help"], capture_output=True, text=True,
+                       timeout=120, cwd=str(PKG.parent))
+    assert r.returncode == 0 and "--device" in r.stdout, r.stderr[-2000:]

@@ -113,16 +113,27 @@ def test_v1_header_raises(tmp_path):
 
 
 def test_mesh_header_and_missing_files_raise(tmp_path):
+    """A header with mesh_devices=4 loads onto a 4-shard mesh of the load's
+    device with the single index's results; missing files raise."""
+    from tpu_knn_torch.parallel.sharded import DistributedSeqSearch
+
     x = clustered(50, 4, seed=54)
     p = str(tmp_path / "m")
-    _build("port", "l2", x, {}).save(p)
+    single = _build("port", "l2", x, {})
+    single.save(p)
     z = _npz(p + ".idx.npz")
     h = json.loads(bytes(z["__header__"].tobytes()).decode())
     h["mesh_devices"] = 4
     z["__header__"] = np.frombuffer(json.dumps(h).encode(), np.uint8)
     np.savez(p + ".idx.npz", **z)
-    with pytest.raises(InvalidArgumentError, match="mesh"):
-        tpu_knn_torch.Index.load(p, device="cpu")
+    sharded = tpu_knn_torch.Index.load(p, device="cpu")
+    assert isinstance(sharded.method, DistributedSeqSearch) and sharded.mesh.size == 4
+    d0, i0 = single.knn_query_batch(x[:5], 3)
+    d1, i1 = sharded.knn_query_batch(x[:5], 3)
+    np.testing.assert_array_equal(i1, i0)
+    np.testing.assert_allclose(d1, d0, rtol=5e-3, atol=1e-5)
+    sharded.save(p + "2")
+    assert _header(p + "2")["mesh_devices"] == 4
     with pytest.raises(DataIOError):
         tpu_knn_torch.Index.load(str(tmp_path / "nothing"), device="cpu")
     os.remove(p + ".dat.npz")

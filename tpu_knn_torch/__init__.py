@@ -8,7 +8,9 @@ SQFD and sparse-dense fusion spaces and ``word_embed``; the exact scan
 (``method="seq_search"``), ``dummy``, HNSW (the default method),
 ``sw-graph`` with incremental add and delete, ``vptree``, NAPP
 (``napp``/``pivot_neighb_invindx``) and the inverted index
-(``simple_invindx``). The scan's
+(``simple_invindx``); the experiment CLI (``python -m tpu_knn_torch``)
+and its harness (``eval``); ``Index(..., mesh=)`` over logical shards
+(``parallel``). The scan's
 pass 1 over a space with an affine factored form is a CUDA kernel written
 for sm_90a at each of tpu_knn's precision tiers
 (ops/groupmin.py; csrc/groupmin.cu for f32, csrc/groupmin_wgmma_i8.cu for

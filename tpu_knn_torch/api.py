@@ -29,8 +29,10 @@ absorbed in place, :meth:`Index.delete_batch` removes rows),
 kNN, async kNN and range queries; save/load in tpu_knn's format v3
 (io/persist.py), so a file either package writes loads in the other.
 Sparse query batches are lists of (ids, values) or SparsePoint, of any
-length; string batches lists of str or bytes. ``mesh=`` comes in a later
-slice (ROADMAP.md).
+length; string batches lists of str or bytes. ``mesh=`` shards the
+corpus over logical shards (parallel/mesh.py) for seq_search/brute_force
+(the sharded exact scan, parallel/sharded.py) and hnsw (one subgraph per
+shard, parallel/hnsw_sharded.py).
 """
 
 from __future__ import annotations
@@ -95,7 +97,14 @@ def _resolve_device(device) -> torch.device:
 
 class Index:
     """The user-facing index handle. All tensors of the index live on
-    ``device`` (default ``"cuda"``); there is no silent CPU fallback."""
+    ``device`` (default ``"cuda"``); there is no silent CPU fallback.
+
+    ``mesh``: shard the index over a mesh: an int N (an N-shard mesh of
+    ``device``'s type, made at build time) or a parallel.mesh.Mesh.
+    Supported methods: hnsw (per-shard subgraphs) and
+    seq_search/brute_force (the sharded exact scan). The corpus is
+    row-sharded, queries are replicated, the per-shard top-k merges on
+    the first shard's device."""
 
     def __init__(
         self,
@@ -111,8 +120,6 @@ class Index:
             data_type = DataKind(data_type)
         if isinstance(dist_type, str):
             dist_type = DistKind(dist_type)
-        if mesh is not None:
-            raise InvalidArgumentError("mesh= is not ported yet (ROADMAP.md, mesh layer)")
         self._requested_space = space
         self.space_name = canonical_space_name(space)
         self.method_name = method
@@ -131,6 +138,12 @@ class Index:
             raise InvalidArgumentError(
                 f"space {self.space_name!r} uses {self.space.dist_kind.value} distances, "
                 f"but index was created with {dist_type.value}"
+            )
+        self.mesh = mesh
+        if mesh is not None and method not in ("hnsw", "seq_search", "brute_force"):
+            raise InvalidArgumentError(
+                f"method {method!r} has no distributed implementation; "
+                "mesh= supports hnsw and seq_search/brute_force"
             )
         self.store = DataStore(data_type)
         self.method = None
@@ -232,12 +245,34 @@ class Index:
 
     # ---------------- build ----------------
 
+    def _resolve_mesh(self):
+        """int -> Mesh of this index's device type at first use."""
+        if isinstance(self.mesh, int):
+            from .parallel.mesh import make_mesh
+
+            self.mesh = make_mesh(self.mesh, device=self.device)
+        return self.mesh
+
+    def _make_method(self, params: Params):
+        """Method factory honoring the mesh routing (also used by the load
+        path, io/persist.py)."""
+        if self.mesh is not None:
+            mesh = self._resolve_mesh()
+            if self.method_name in ("seq_search", "brute_force"):
+                from .parallel.sharded import DistributedSeqSearch
+
+                return DistributedSeqSearch(self.space, mesh, params)
+            from .parallel.hnsw_sharded import ShardedHnsw
+
+            return ShardedHnsw(self.space, mesh, params)
+        return create_method(self.method_name, self.space, params)
+
     def build_index(self, index_params: Params | dict | None = None, print_progress: bool = False) -> None:
         params = Params.of(index_params) if index_params is not None else (self._index_params or Params())
         self._index_params = params
         if print_progress:
             log("INFO", f"building {self.method_name} over {len(self.store)} objects on {self.device}")
-        self.method = create_method(self.method_name, self.space, params)
+        self.method = self._make_method(params)
         self.method.progress = print_progress  # per-wave logging (hnsw)
         self.method.create_index(self.store, params)
         if self._query_params is not None:

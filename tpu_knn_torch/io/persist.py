@@ -33,7 +33,6 @@ import numpy as np
 from ..core.dataset import DataKind, DataStore, DistKind
 from ..core.errors import DataIOError
 from ..core.params import Params
-from ..core.registry import create_method
 
 _FORMAT_VERSION = 3  # v3: data arrays in exactly one artifact (see module doc)
 
@@ -90,7 +89,13 @@ def save_index(index, path: str, save_data: bool = True) -> None:
         "dist_type": index.dist_type.value,
         "index_params": (index._index_params or Params()).as_dict(),
         "count": len(index.store),
-        "mesh_devices": 0,  # the port has no mesh layer yet
+        # a sharded index records its mesh size; load recreates an
+        # equal-size mesh on the load's device
+        "mesh_devices": (
+            int(index.mesh.devices.size)
+            if getattr(index, "mesh", None) is not None and not isinstance(index.mesh, int)
+            else int(index.mesh or 0)
+        ),
     }
     state = index.method.state_arrays() if index.method is not None else {}
     try:
@@ -113,7 +118,7 @@ def load_index(path: str, load_data: bool = True, device="cuda"):
     """Rebuild the saved index on ``device``. ``load_data`` is accepted for
     the reference's signature: the data arrays are read from whichever
     artifact holds them, in both modes. A header with ``mesh_devices`` > 0
-    raises InvalidArgumentError, as ``Index(mesh=...)`` does."""
+    loads onto a mesh of that many shards of ``device``'s type."""
     from ..api import Index
 
     try:
@@ -147,7 +152,7 @@ def load_index(path: str, load_data: bool = True, device="cuda"):
             raise DataIOError(f"failed to load index data from {path}: {e}")
     index.store = _store_from_arrays(index.data_type, dat)
     state = {k[len("state_"):]: idx_npz[k] for k in idx_npz.files if k.startswith("state_")}
-    index.method = create_method(index.method_name, index.space, index._index_params)
+    index.method = index._make_method(index._index_params)
     index.method.restore(index.store, state, index._index_params)
     index.built = True
     return index

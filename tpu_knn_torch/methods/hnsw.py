@@ -617,6 +617,13 @@ class Hnsw(Method):
     #: (spaces/sparse.py sketch_proxy's r_mat): a test hook
     sketch_r = None
 
+    #: shard hooks of parallel/hnsw_sharded.py: a sparse corpus encodes to
+    #: at least this vocabulary width (0: its own), and the JL sketch draws
+    #: R from this seed (None: the build's ``seed``), so every shard of a
+    #: sharded build shares one proxy space
+    vocab_floor = 0
+    sketch_seed = None
+
     def _resolve_build_algo(self, n: int) -> str:
         """buildAlgo with "auto" resolved: NN-descent from buildAlgoAutoN
         rows up; sketch-proxy builds stay on waves, as in tpu_knn."""
@@ -810,7 +817,10 @@ class Hnsw(Method):
         proxy's dense rows, and the sparse space's own encodings are kept
         for the exact refinements (exactBase, exactPairs, exactPost,
         exactShrink)."""
-        self.data = self.space.encode_dataset(store, row_multiple=8)
+        if self.vocab_floor:
+            self.data = self.space.encode_dataset(store, row_multiple=8, vocab_floor=self.vocab_floor)
+        else:
+            self.data = self.space.encode_dataset(store, row_multiple=8)
         self._proxy = None
         self._exact_qenc_all = None
         n_pad = self.data.ids.shape[0]
@@ -828,7 +838,8 @@ class Hnsw(Method):
         self._graph_data = self.data
         mk = getattr(self.space, "sketch_proxy", None)
         if mk is not None and self.sketch_dim > 0:
-            self._proxy = mk(self.data, self.sketch_dim, self.seed, r_mat=self.sketch_r)
+            sseed = self.seed if self.sketch_seed is None else self.sketch_seed
+            self._proxy = mk(self.data, self.sketch_dim, sseed, r_mat=self.sketch_r)
         points = lambda: self.space.store_as_query_points(store)[self.order]  # noqa: E731
         if self._proxy is not None:
             pspace, pdata, _ = self._proxy
