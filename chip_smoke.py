@@ -257,7 +257,21 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     check_graph zero, the graphs equal (torch.equal), recall@10 at
     efSearch=50. The mesh layer and the CLI are torch ops and host code,
     as they are XLA ops and host code in tpu_knn; the exact scan reaches
-    the f32 kernel.
+    the f32 kernel. (d) [mesh] one groupmin_f32 launch on a shard's rows
+    timed by CUDA events, with its share of the per-launch bound.
+22. [async] knn_query_batch_async, on no index of its own: on phase 4's
+    1M l2 index right after phase 4 (a) the 2048-query dispatch returns
+    while its batch's CUDA event has not completed (dispatch ms beside
+    phase 4's synchronous wall), the result bit-identical to phase 4's;
+    (b) 8 distinct batches of 2048 sift_like queries (seed 22) in flight
+    at once, each bit-identical to knn_query_batch of the same batch, with
+    8 groupmin_f32 launches counted over the in-flight run; (c) the 8
+    in flight against 8 serial calls, in turns (in flight, serial,
+    serial, in flight), three rounds: ms and qps of both; inside phase 15
+    on HNSW-100k at efSearch=20 (d) (b) and (c) again, and (e) a batch
+    dispatched at efSearch=20 gives the synchronous efSearch=20 result
+    though the method is set to efSearch=100 before it is read (and
+    again through Index.set_query_time_params, which drains first).
 
 Every [kernel] line at the main path's shapes prints the kernel's bound
 (the larger of its bytes over 3.35 TB/s and its operations over the
@@ -1175,6 +1189,91 @@ def _check_exact_distances(label, d, ids, q_dev, x_dev):
     return float(np.abs(d - ref).max())
 
 
+def _async_batches(n: int = 8):
+    """Phase 22's n distinct batches of N_QUERIES sift_like queries (seed 22)."""
+    from tpu_knn_torch.eval.datasets import sift_like
+
+    x = sift_like(n * N_QUERIES, DIM, seed=22)
+    return [x[i * N_QUERIES:(i + 1) * N_QUERIES] for i in range(n)]
+
+
+def _async_runs(tag: str, idx, batches, k: int, smi, tier: str | None = None) -> dict:
+    """Phase 22 (b) and (c) on one index: the batches all in flight at once,
+    each result bit-identical to knn_query_batch of the same batch (the
+    group-min launches of ``tier`` counted over the in-flight run, one a
+    batch), then the in-flight run against the same calls made serially,
+    in turns (in flight, serial, serial, in flight), three rounds. Returns
+    the numbers it printed."""
+    import torch
+    from tpu_knn_torch.ops import groupmin as GM
+
+    want = [idx.knn_query_batch(b, k) for b in batches]
+    torch.cuda.synchronize()
+    GM.reset_launches()
+    futs = [idx.knn_query_batch_async(b, k) for b in batches]
+    got = [f.result() for f in futs]
+    launched = dict(GM.launches)
+    same = [bool(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])) for g, w in zip(got, want)]
+    _require(all(same), lambda: f"[async] {tag}: in-flight results differ from knn_query_batch: {same}")
+    if tier is not None:
+        _require(launched[tier] == len(batches),
+                 lambda: f"[async] {tag}: {launched} group-min launches for {len(batches)} batches in flight")
+
+    def in_flight():
+        for f in [idx.knn_query_batch_async(b, k) for b in batches]:
+            f.result()
+
+    def serial():
+        for b in batches:
+            idx.knn_query_batch(b, k)
+
+    times = {"in_flight": [], "serial": []}
+    for _ in range(3):
+        for who in ("in_flight", "serial", "serial", "in_flight"):
+            ts = time.perf_counter()
+            (in_flight if who == "in_flight" else serial)()
+            times[who].append((time.perf_counter() - ts) * 1e3)
+    nq = sum(len(b) for b in batches)
+    med = {who: statistics.median(t) for who, t in times.items()}
+    qps = {who: nq / m * 1e3 for who, m in med.items()}
+    print(f"[async] {tag}: {len(batches)} batches of {len(batches[0])} queries in flight, each bit-identical to "
+          f"knn_query_batch; launches over the in-flight run {launched}; ms of the {len(batches)} batches in turns "
+          f"(in flight, serial, serial, in flight) x 3: in flight {[round(t, 3) for t in times['in_flight']]}, "
+          f"serial {[round(t, 3) for t in times['serial']]}; median in flight {med['in_flight']:.3f} ms "
+          f"({qps['in_flight']:.1f} qps), serial {med['serial']:.3f} ms ({qps['serial']:.1f} qps), ratio "
+          f"{med['in_flight'] / med['serial']:.4f}; {smi}", flush=True)
+    return {"launches": launched.get(tier) if tier else None, "ms_in_flight": times["in_flight"],
+            "ms_serial": times["serial"], "qps_in_flight": qps["in_flight"], "qps_serial": qps["serial"]}
+
+
+def _phase_async_scan(smi, idx, queries, d10, i10, sync_ms: float) -> dict:
+    """Phase 22 (a)-(c) on phase 4's 1M l2 seq_search index. (a) dispatches
+    twice: the first call of the process also starts the card's worker
+    (its thread and its stream), the second finds it idle."""
+    import torch
+
+    dispatch_ms = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        fut = idx.knn_query_batch_async(queries, K)
+        dispatch_ms.append((time.perf_counter() - ts) * 1e3)
+        job = idx.method._inflight[-1]
+        # the worker records the batch's event once it has queued the batch
+        early = not job.done.is_set() or not job.event.query()
+        d, i = fut.result()
+        _require(early, lambda: "[async] (a) knn_query_batch_async returned after its batch had completed")
+        _require(np.array_equal(d, d10) and np.array_equal(i, i10),
+                 lambda: "[async] (a) the future differs from phase 4's knn_query_batch")
+    print(f"[async] (a) 1M l2 seq_search, Q={N_QUERIES} k={K}: knn_query_batch_async returned in "
+          f"{dispatch_ms[1]:.3f} ms ({dispatch_ms[0]:.3f} ms the first time, which starts the worker), each "
+          f"before its batch's event completed (synchronous wall, phase 4 median: {sync_ms:.3f} ms); the results "
+          f"bit-identical to phase 4's; {smi}", flush=True)
+    out = {"dispatch_ms": dispatch_ms[1], "first_dispatch_ms": dispatch_ms[0], "sync_ms": sync_ms}
+    out.update(_async_runs("(b, c) 1M l2 seq_search", idx, _async_batches(), K, smi, tier="float32"))
+    return out
+
+
 def _phase_hnsw(smi):
     """The default method at the repo's own HNSW cell (100,000 x 128
     sift_like rows, M=16, efConstruction=200, waveSize=1024; 2048 queries,
@@ -1259,6 +1358,25 @@ def _phase_hnsw(smi):
     dup = [int((np.sort(r["i"], axis=1)[:, 1:] == np.sort(r["i"], axis=1)[:, :-1]).sum()) for r in plain.values()]
     _require(sum(dup) == 0, lambda: f"duplicate ids in results: {dup}")
     out["search"] = {ef: {a: r[a] for a in ("recall", "ms", "qps")} for ef, r in plain.items()}
+
+    # ---- phase 22 (d) and (e): async on this index ----
+    idx.set_query_time_params(Params(efSearch=20))
+    out["async"] = _async_runs("(d) hnsw 100k efSearch=20", idx, _async_batches(), k, smi)
+    for how in ("method", "Index"):
+        fut = idx.knn_query_batch_async(queries, k)
+        job = idx.method._inflight[-1]
+        in_flight = not job.done.is_set()
+        if how == "method":  # no drain at this level: the batch may still be queued
+            idx.method.set_query_time_params(Params(efSearch=100))
+        else:
+            idx.set_query_time_params(Params(efSearch=100))
+        da, ia = fut.result()
+        _require(np.array_equal(da, plain[20]["d"]) and np.array_equal(ia, plain[20]["i"]),
+                 lambda: f"[async] (e) a batch dispatched at efSearch=20 changed with {how}.set_query_time_params")
+        print(f"[async] (e) dispatched at efSearch=20, then {how}.set_query_time_params(efSearch=100) with the "
+              f"batch {'still in flight' if in_flight else 'already run'}: the result equals the synchronous "
+              f"efSearch=20 result", flush=True)
+        idx.set_query_time_params(Params(efSearch=20))
 
     try:
         idx.range_query(queries[0], 1.0)
@@ -3346,6 +3464,23 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
     out.update(build_s=build_s, launches=launched, peak_gib=peak, physical_devices=phys, ms_mesh=ms_mesh,
                ms_single=ms_single, tie_slots=n_tie)
 
+    # (d) one groupmin_f32 launch on shard 0's rows, as the sharded scan makes it
+    from tpu_knn_torch.methods import seq_search as SS
+
+    qenc = m.space.encode_queries(queries)
+    shard = m.data.shards[0]
+    q, qt, xt, scale = SS._kernel_inputs(m.space, qenc, shard)
+    xt = xt.contiguous()
+    shard_ms = _cuda_ms(lambda: GM.fused_groupmin(q, shard.vecs, qt, xt, scale), 10)
+    shard_plain_ms = _cuda_ms(lambda: GM.fused_groupmin_reference(q, shard.vecs, qt, xt, scale), 3)
+    shard_bound, shard_by = _bound_ms("float32", q, shard.vecs)
+    print(f"[mesh] (d) groupmin_f32 on one shard, Q={q.shape[0]} N={shard.vecs.shape[0]} D={shard.vecs.shape[1]}: "
+          f"{shard_ms:.3f} ms a launch (CUDA events, mean of 10; plain {shard_plain_ms:.3f} ms, mean of 3), "
+          f"{launched} launches a batch; bound {shard_bound:.3f} ms ({shard_by}), {shard_bound / shard_ms:.1%} of "
+          f"it; four launches {4 * shard_ms:.3f} ms against the four-launch bound {4 * shard_bound:.3f} ms; {smi}",
+          flush=True)
+    out.update(shard_kernel_ms=shard_ms, shard_plain_ms=shard_plain_ms, shard_bound_ms=shard_bound)
+
     # range at phase 9's radius: the single-device range's id sets
     radius = float(np.median(d10[:, K - 1]))
     ts = time.perf_counter()
@@ -3363,14 +3498,13 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
     out.update(range_s=t_range, range_single_s=t_single, range_hits=hits)
 
     # the two-tier merge on a [2, 2] mesh against the flat merge
-    qenc = m.space.encode_queries(queries)
     d_flat, i_flat = SH.sharded_exact_knn(m.space, qenc, m.data, K, m.mesh)
     d_hier, i_hier = SH.sharded_exact_knn_hier(m.space, qenc, m.data, K, make_mesh2(2, 2, device="cuda"))
     _require(torch.equal(i_flat, i_hier) and torch.equal(d_flat, d_hier),
              lambda: "two-tier merge differs from the flat merge")
     print(f"[mesh] (b) two-tier merge on make_mesh2(2, 2): ids and distances equal to the flat merge; {smi}",
           flush=True)
-    del single, mesh_ix, m, qenc, d_flat, i_flat, d_hier, i_hier, x_dev
+    del single, mesh_ix, m, qenc, d_flat, i_flat, d_hier, i_hier, x_dev, shard, q, qt, xt
     torch.cuda.empty_cache()
 
     # ---- (c) the sharded HNSW ----
@@ -3629,6 +3763,10 @@ def main() -> int:
     _require(kp <= 1.0, lambda: f"kernel vs plain at the main path's shapes: {kp} of the bound")
     t0 = _phase("main path", t0)
 
+    # ---- 22 (a)-(c). async on phase 4's index ----
+    asy = _phase_async_scan(smi, idx, queries, d10, i10, med)
+    t0 = _phase("async on the 1M scan", t0)
+
     # ---- 5. float64 oracle ----
     q_dev = torch.from_numpy(queries).to(dev)
     x_dev = torch.from_numpy(corpus).to(dev)
@@ -3867,6 +4005,7 @@ def main() -> int:
     print("[hnsw] " + json.dumps({"build_s": round(hn["build_s"], 2), "build_peak_gib": round(hn["build_peak_gib"], 3),
                                   "qps_recall": {str(ef): [round(r["qps"]), round(r["recall"], 4)]
                                                  for ef, r in hn["search"].items()}}) + f"; {smi}", flush=True)
+    print("[async] " + json.dumps({"scan_1m": asy, "hnsw_100k": hn["async"]}) + f"; {smi}", flush=True)
 
     # ---- 16. nnd: the default index at SIFT-1M, built by NN-descent ----
     nd = _phase_nnd(smi, corpus, queries, i10)

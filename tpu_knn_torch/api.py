@@ -26,7 +26,8 @@ every ``precision``, ``dummy``, ``hnsw`` (the default method),
 ``sw-graph``/``small_world_rand`` (rows added after the build are
 absorbed in place, :meth:`Index.delete_batch` removes rows),
 ``vptree``, ``napp``/``pivot_neighb_invindx`` and ``simple_invindx``;
-kNN, async kNN and range queries; save/load in tpu_knn's format v3
+kNN, async kNN (non-blocking for seq_search/brute_force, hnsw, sw-graph
+and napp) and range queries; save/load in tpu_knn's format v3
 (io/persist.py), so a file either package writes loads in the other.
 Sparse query batches are lists of (ids, values) or SparsePoint, of any
 length; string batches lists of str or bytes. ``mesh=`` shards the
@@ -67,8 +68,9 @@ class QueryResult:
 
 class KnnFuture:
     """Handle for a dispatched-but-unread kNN batch
-    (:meth:`Index.knn_query_batch_async`). ``result()`` returns the same
-    (dists, ids) pair ``knn_query_batch`` would; it is idempotent."""
+    (:meth:`Index.knn_query_batch_async`). ``result()`` waits for the
+    batch and returns the same (dists, ids) pair ``knn_query_batch``
+    would; it is idempotent, and re-raises the error the batch raised."""
 
     __slots__ = ("_materialize", "_value")
 
@@ -183,11 +185,13 @@ class Index:
         labels: Sequence[int] | None = None,
     ) -> None:
         self._check_dim(np.asarray(vectors))
+        self._drain()
         old = len(self.store)
         self.store.add_dense_batch(vectors, ids, labels)
         self._mark_dirty(old)
 
     def add_uint8_batch(self, vectors: Any, ids: Sequence[int] | None = None) -> None:
+        self._drain()
         old = len(self.store)
         self.store.add_uint8_batch(vectors, ids)
         self._mark_dirty(old)
@@ -195,6 +199,7 @@ class Index:
     def add_sparse_batch(self, points, ids: Sequence[int] | None = None) -> None:
         """Sparse points as (ids, values) pairs or SparsePoint: ids 1-based
         and strictly increasing; object ids default to 1-based positions."""
+        self._drain()
         old = len(self.store)
         self.store.add_sparse_batch(points, ids)
         self._mark_dirty(old)
@@ -214,6 +219,7 @@ class Index:
         self.add_uint8_batch(unpack_bit_vectors(words, n_bits), ids)
 
     def add_string_batch(self, strings: Sequence[str | bytes], ids: Sequence[int] | None = None) -> None:
+        self._drain()
         old = len(self.store)
         self.store.add_string_batch(strings, ids)
         self._mark_dirty(old)
@@ -223,6 +229,7 @@ class Index:
         methods with incremental maintenance (reference: only sw-graph,
         small_world_rand.cc DeleteBatch)."""
         self._ensure_built()
+        self._drain()
         self.method.delete_batch(positions, strategy)
 
     def _check_dim(self, arr: np.ndarray) -> None:
@@ -242,6 +249,15 @@ class Index:
             self.method.add_batch(self.store, range(old_count, len(self.store)))
             return
         self.built = False
+
+    # ---------------- the drain rule ----------------
+
+    def _drain(self) -> None:
+        """Wait for the batches knn_query_batch_async left in flight and
+        re-raise their first error, so that every other call sees results,
+        counters and the index as if the calls had run in order."""
+        if self.method is not None:
+            self.method.drain()
 
     # ---------------- build ----------------
 
@@ -268,6 +284,7 @@ class Index:
         return create_method(self.method_name, self.space, params)
 
     def build_index(self, index_params: Params | dict | None = None, print_progress: bool = False) -> None:
+        self._drain()
         params = Params.of(index_params) if index_params is not None else (self._index_params or Params())
         self._index_params = params
         if print_progress:
@@ -286,6 +303,7 @@ class Index:
 
     def clear_index_cache(self) -> None:
         """Drop the built index, keep the data (reference: lib.zig clearIndexCache)."""
+        self._drain()
         self.method = None
         self.built = False
 
@@ -316,6 +334,7 @@ class Index:
         if k <= 0:
             raise InvalidArgumentError("k must be positive")
         self._ensure_built()
+        self._drain()
         pts, b = self._bucket_query_points(points)
         return self._finish_knn(*self.method.knn(pts, k), b)
 
@@ -347,10 +366,21 @@ class Index:
         return [self._trim(dr, ir) for dr, ir in zip(d, i)]
 
     def knn_query_batch_async(self, points: Any, k: int) -> KnnFuture:
-        """Dispatch a kNN batch and return a :class:`KnnFuture`; its
-        ``.result()`` is what knn_query_batch returns. Methods without a
-        device-resident result path (all ported ones) run synchronously
-        inside this call."""
+        """Dispatch a kNN batch and return a :class:`KnnFuture` at once;
+        its ``.result()`` is what knn_query_batch returns.
+
+        For seq_search/brute_force, hnsw, sw-graph and napp, this call
+        validates (k, the build, the query points), encodes the queries
+        and captures every query-time parameter, then queues the search
+        on the in-order worker of the index's device (methods/base.py:
+        one thread per device, on the card with a stream of its own, that
+        serializes the batches of every index) and returns before the
+        batch has run. Any other call on the index (kNN, range, add,
+        build, delete, set_query_time_params, save, memory_usage_bytes,
+        reading ``method.dist_comps``) first waits for its batches in
+        flight; an error raised by a batch comes from its future's
+        ``result()`` and from that next call. The other methods (vptree,
+        simple_invindx, dummy, mesh=) run the batch inside this call."""
         if k <= 0:
             raise InvalidArgumentError("k must be positive")
         self._ensure_built()
@@ -367,6 +397,7 @@ class Index:
         distances of every corpus point within ``radius``, ascending.
         Results stream through the device in chunks, never as [Q, N]."""
         self._ensure_built()
+        self._drain()
         res = self.method.range(self._prep_query_points(points), radius)
         if self.dist_type is DistKind.INT:
             return [QueryResult(ids, np.rint(dists)) for ids, dists in res]
@@ -395,6 +426,7 @@ class Index:
 
     def set_query_time_params(self, params: Params | dict | None) -> None:
         self._ensure_built()
+        self._drain()
         self._query_params = Params.of(params) if params is not None else None
         self.method.set_query_time_params(self._query_params)
 
@@ -447,6 +479,7 @@ class Index:
         """Write ``path``.idx.npz (and ``path``.dat.npz with ``save_data``)
         in tpu_knn's format v3."""
         self._ensure_built()
+        self._drain()
         from .io.persist import save_index
 
         save_index(self, path, save_data)
@@ -461,6 +494,7 @@ class Index:
     def memory_usage_bytes(self) -> int:
         """Bytes of the index's tensors on its device (reference:
         nmslib_index_memory_usage, nmslib_c.cpp:1546-1565)."""
+        self._drain()
         if self.method is None or self.method.data is None:
             return 0
         tensors = list(self.method.data.tensors()) + list(self.method.aux_device_arrays())

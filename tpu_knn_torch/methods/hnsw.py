@@ -1097,25 +1097,45 @@ class Hnsw(Method):
                 self._nbr_store = (adj, vecs.to(torch.bfloat16)[safe], 1.0)
         return self._nbr_store[1], self._nbr_store[2]
 
-    def knn(self, points, k: int):
+    def _knn_run(self, points, k: int):
+        """The caller's side of a kNN batch: validate, encode the queries
+        and capture every setting the search reads (efSearch, the
+        expansion, the neighbour store, the graph as it stands). Returns
+        (qenc, run); run() searches on the device, adds its dist comps
+        and gives (dists, ids) as tensors."""
         if self.graph is None:
             raise IndexNotBuiltError("hnsw: index not built")
         ef = max(self.ef_search, k)
-        qenc = self.space.encode_queries(points)
+        expand = self._effective_expand(ef)
+        space, data, level0, upper, entry = self.space, self.data, self.graph["level0"], tuple(self._upper), self._entry
+        qenc = space.encode_queries(points)
         if self._proxy is not None and self.sketch_query:
             pspace, pdata, r_mat = self._proxy
-            d, ids, nd = _search_sketch(
-                pspace, self.space, self.space.sketch_queries(qenc, r_mat), qenc, pdata, self.data,
-                self.graph["level0"], tuple(self._upper), self._entry, ef, k, self._effective_expand(ef),
-            )
+            qenc = {"exact": qenc, "sketch": space.sketch_queries(qenc, r_mat)}
+
+            def search():
+                return _search_sketch(pspace, space, qenc["sketch"], qenc["exact"], pdata, data,
+                                      level0, upper, entry, ef, k, expand)
+        else:
+            nbr_store = self._get_nbr_store()
+
+            def search():
+                return _search_core(space, qenc, data, level0, upper, entry, ef, k, expand, nbr_store=nbr_store)
+
+        def run():
+            d, ids, nd = search()
             self._add_dist_comps(nd)
-            return self._finalize_knn(d.cpu().numpy(), ids.cpu().numpy())
-        d, ids, nd = _search_core(
-            self.space, qenc, self.data, self.graph["level0"], tuple(self._upper),
-            self._entry, ef, k, self._effective_expand(ef), nbr_store=self._get_nbr_store(),
-        )
-        self._add_dist_comps(nd)
+            return d, ids
+
+        return qenc, run
+
+    def knn(self, points, k: int):
+        d, ids = self._knn_run(points, k)[1]()
         return self._finalize_knn(d.cpu().numpy(), ids.cpu().numpy())
+
+    def knn_async(self, points, k: int):
+        qenc, run = self._knn_run(points, k)
+        return self._dispatch(run, self._finalize_knn, qenc)
 
     def range(self, points, radius):
         raise SpaceIncompatibleError("Range search is not supported!")

@@ -303,23 +303,38 @@ class Napp(Method):
         if self._prefix is None:
             raise IndexNotBuiltError("napp: index not built")
 
-    def knn(self, points, k: int):
+    def _knn_run(self, points, k: int):
+        """The caller's side of a kNN batch: validate, encode the queries
+        and capture every query-time setting (invProcAlg, minTimes,
+        numPrefixSearch, skipChecking, the gather plan). Returns (qenc,
+        run); run() searches on the device, adds its dist comps and gives
+        (dists, ids) as tensors."""
         self._check_built()
         qenc = self.space.encode_queries(points)
         nps = min(self.num_prefix_search, self._pivot_rows.shape[0])
+        args = (self.space, qenc, self.data, self._pivot_rows, self._prefix, k)
         if self.inv_proc_alg == "gather" and not self.skip_checking:
             keep, cand_chunk = self._gather_plan(k)
-            d, ids, nd = _napp_knn_gathered(
-                self.space, qenc, self.data, self._pivot_rows, self._prefix,
-                k, self._chunk, self.min_times, nps, keep, cand_chunk,
-            )
+            args += (self._chunk, self.min_times, nps, keep, cand_chunk)
+            search = _napp_knn_gathered
         else:
-            d, ids, nd = _napp_knn(
-                self.space, qenc, self.data, self._pivot_rows, self._prefix,
-                k, self._scan_chunk, self.min_times, self.skip_checking, nps,
-            )
-        self._add_dist_comps(nd)
+            args += (self._scan_chunk, self.min_times, self.skip_checking, nps)
+            search = _napp_knn
+
+        def run():
+            d, ids, nd = search(*args)
+            self._add_dist_comps(nd)
+            return d, ids
+
+        return qenc, run
+
+    def knn(self, points, k: int):
+        d, ids = self._knn_run(points, k)[1]()
         return self._finalize_knn(d.cpu().numpy(), ids.cpu().numpy())
+
+    def knn_async(self, points, k: int):
+        qenc, run = self._knn_run(points, k)
+        return self._dispatch(run, self._finalize_knn, qenc)
 
     def range(self, points, radius: float):
         """Approximate range search through the kNN candidate pipeline

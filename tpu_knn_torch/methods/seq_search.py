@@ -422,30 +422,45 @@ class SeqSearch(Method):
             ensure_cert_metadata(self.data)
         return kk, use_twopass
 
-    def knn(self, points, k: int):
+    def _knn_run(self, points, k: int):
+        """The caller's side of a kNN batch: validate, plan, encode the
+        queries and count the scan's distances (at dispatch, as tpu_knn's
+        knn_async does), capturing every setting the search reads.
+        Returns (kk, qenc, run); run() searches on the device and gives
+        (dists, ids) as tensors."""
         if self.data is None:
             raise IndexNotBuiltError("seq_search: index not built")
         kk, use_twopass = self._plan_knn(k)
         qenc = self.space.encode_queries(points)
-        ok, redone = 1.0, 0
-        if use_twopass:
-            d, ids, _, ok, redone = _knn_device_twopass(
-                self.space, qenc, self.data, kk, self._chunk, self.precision, self.pass1_precision
-            )
-        else:
-            d, ids, _ = _knn_device(self.space, qenc, self.data, kk, self._chunk, self.precision)
-        self.last_route = "twopass" if use_twopass else "single"
-        out = self._knn_finish(d, ids, k, kk)
-        self.last_certified, self.last_redone_blocks = float(ok), redone
-        return out
+        space, data, chunk, precision, tier = self.space, self.data, self._chunk, self.precision, self.pass1_precision
+        self._add_dist_comps(len(points) * data.count)
 
-    def _knn_finish(self, d, ids, k: int, kk: int):
-        d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        def run():
+            ok, redone = 1.0, 0
+            if use_twopass:
+                d, ids, _, ok, redone = _knn_device_twopass(space, qenc, data, kk, chunk, precision, tier)
+            else:
+                d, ids, _ = _knn_device(space, qenc, data, kk, chunk, precision)
+            self.last_route = "twopass" if use_twopass else "single"
+            self.last_certified, self.last_redone_blocks = float(ok), redone
+            return d, ids
+
+        return kk, qenc, run
+
+    def knn(self, points, k: int):
+        kk, _, run = self._knn_run(points, k)
+        d, ids = run()
+        return self._knn_finish(d.cpu().numpy(), ids.cpu().numpy(), k, kk)
+
+    def knn_async(self, points, k: int):
+        kk, qenc, run = self._knn_run(points, k)
+        return self._dispatch(run, lambda d, ids: self._knn_finish(d, ids, k, kk), qenc)
+
+    def _knn_finish(self, d: np.ndarray, ids: np.ndarray, k: int, kk: int):
         if kk < k:  # keep the requested width; extras are masked
             padw = k - kk
             d = np.pad(d, ((0, 0), (0, padw)), constant_values=np.inf)
             ids = np.pad(ids, ((0, 0), (0, padw)), constant_values=-1)
-        self.dist_comps += d.shape[0] * self.data.count
         return self._finalize_knn(d, ids)
 
     def range(self, points, radius: float):
@@ -460,7 +475,7 @@ class SeqSearch(Method):
         counts = _range_counts_device(
             self.space, qenc, self.data, radius, self._chunk, self.precision
         ).cpu().numpy()
-        self.dist_comps += counts.shape[0] * self.data.count
+        self._add_dist_comps(counts.shape[0] * self.data.count)
         return stream_range_results(
             counts,
             self.data,

@@ -51,15 +51,68 @@ the hoisting to XLA.
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from . import topk as T
 from .distance import batched_dot, block_elems
 from .topk import INF
 
+class _Counters(dict):
+    """A dict whose reads first wait for the kNN batches in flight on the
+    dispatcher's workers (methods/base.drain_all), so they count every
+    batch dispatched before the read; the loops bump it without waiting,
+    under a lock (a worker and a caller may search at once)."""
+
+    _lock = threading.Lock()
+
+    def bump(self, key: str) -> None:
+        with self._lock:
+            dict.__setitem__(self, key, dict.__getitem__(self, key) + 1)
+
+    @staticmethod
+    def _drain() -> None:
+        from ..methods.base import drain_all  # methods import this module
+
+        drain_all()
+
+    def __getitem__(self, key):
+        self._drain()
+        return dict.__getitem__(self, key)
+
+    def __iter__(self):
+        self._drain()
+        return dict.__iter__(self)
+
+    def __repr__(self):
+        self._drain()
+        return dict.__repr__(self)
+
+    def get(self, key, default=None):
+        self._drain()
+        return dict.get(self, key, default)
+
+    def keys(self):
+        self._drain()
+        return dict.keys(self)
+
+    def values(self):
+        self._drain()
+        return dict.values(self)
+
+    def items(self):
+        self._drain()
+        return dict.items(self)
+
+    def copy(self):
+        self._drain()
+        return dict(dict.items(self))
+
+
 #: Host-side counts of the loops: iterations run and device-to-host syncs
 #: made, for the beam and for the greedy descent.
-counters = {"beam_iters": 0, "beam_syncs": 0, "descent_steps": 0, "descent_syncs": 0}
+counters = _Counters(beam_iters=0, beam_syncs=0, descent_steps=0, descent_syncs=0)
 
 
 def reset_counters() -> None:
@@ -247,7 +300,7 @@ def greedy_descent(
     qenc = densify_queries(space, qenc, corpus)
     cur, cur_d = start, start_d
     for _ in range(max_steps):
-        counters["descent_steps"] += 1
+        counters.bump("descent_steps")
         if slot_of is None:
             slots = cur
         else:
@@ -261,7 +314,7 @@ def greedy_descent(
         improve = best_d < cur_d
         cur = torch.where(improve, best_i, cur)
         cur_d = torch.where(improve, best_d, cur_d)
-        counters["descent_syncs"] += 1
+        counters.bump("descent_syncs")
         if not bool(improve.any()):
             break
     return cur, cur_d
@@ -321,10 +374,10 @@ def beam_search(
         frontier_best = unexp_d.min(dim=1).values
         worst = torch.where(lane_ok, beam_d, -INF).max(dim=1).values
         # classic HNSW stop rule, plus "frontier exhausted" cutoff
-        counters["beam_syncs"] += 1
+        counters.bump("beam_syncs")
         if not bool(((frontier_best <= worst) & (frontier_best < INF)).any()):
             break
-        counters["beam_iters"] += 1
+        counters.bump("beam_iters")
 
         # pick EXPAND closest unexpanded entries per query
         vals, pos = T.smallest_k(unexp_d, expand)  # [B, E] positions

@@ -37,6 +37,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -76,6 +77,7 @@ _SCRATCH_BYTES = {
 
 #: kernel launches made by :func:`fused_groupmin`, per tier (CUDA tensors only)
 launches = dict.fromkeys(TIERS, 0)
+_launches_lock = threading.Lock()
 
 _libs: dict = {}
 #: nvcc's output of the build that produced each loaded library ("" if cached)
@@ -320,5 +322,6 @@ def fused_groupmin(q, x, q_term, x_term, scale: float, precision: str = "float32
     if err != 0:
         msg = lib.tk_error_string(err).decode()
         raise RuntimeError(f"groupmin {tier} kernel launch failed: {msg} ({err})")
-    launches[tier] += 1
+    with _launches_lock:  # the dispatcher's worker and a caller may launch at once
+        launches[tier] += 1
     return out

@@ -14,7 +14,13 @@ name and power limit:
     product, the three sorts;
   * with ``--profile-waves``, a second build whose wave step times its
     phases (a sync at every phase edge, so its total exceeds the plain
-    build's).
+    build's);
+  * with ``--async``, the wall of one 2048-query batch at efSearch=20 run
+    four ways in turns (``knn_query_batch`` on the caller's thread, the same
+    under a side stream, the same on a helper thread, and through
+    ``knn_query_batch_async`` one batch at a time), to tell the stream, the
+    thread and the dispatcher apart, then 8 batches in flight against 8
+    serial calls.
 
 With ``--nnd`` it builds bench.py's SIFT-1M parameters instead (1,000,000
 rows by default, M=16, efConstruction=100, waveSize=1024,
@@ -76,6 +82,57 @@ def beam_parts_ms(vecs, nq: int, ef: int, m0: int = 32, expand: int = 4) -> dict
     }
 
 
+def async_split(idx, queries, k: int, smi: str, rounds: int = 7) -> dict:
+    """Median wall ms of one batch at efSearch=20, each way in turn."""
+    import statistics
+    import threading
+
+    import torch
+
+    from .. import Params
+
+    idx.set_query_time_params(Params(efSearch=20))
+    side = torch.cuda.Stream()
+
+    def caller():
+        idx.knn_query_batch(queries, k)
+
+    def side_stream():
+        with torch.cuda.stream(side):  # ends in a .cpu() on the side stream
+            idx.knn_query_batch(queries, k)
+
+    def helper_thread():
+        t = threading.Thread(target=caller)
+        t.start()
+        t.join()
+
+    def dispatched():
+        idx.knn_query_batch_async(queries, k).result()
+
+    def in_flight():
+        for f in [idx.knn_query_batch_async(queries, k) for _ in range(8)]:
+            f.result()
+
+    def serial():
+        for _ in range(8):
+            idx.knn_query_batch(queries, k)
+
+    ways = {"caller": caller, "side_stream": side_stream, "helper_thread": helper_thread,
+            "dispatched": dispatched, "8_in_flight": in_flight, "8_serial": serial}
+    times: dict = {w: [] for w in ways}
+    for fn in ways.values():
+        fn()  # warm
+    for _ in range(rounds):
+        for w, fn in ways.items():
+            t0 = time.perf_counter()
+            fn()
+            times[w].append((time.perf_counter() - t0) * 1e3)
+    med = {w: statistics.median(t) for w, t in times.items()}
+    print(f"[async split] one {len(queries)}-query batch at efSearch=20, median ms of {rounds} in turns: "
+          f"{json.dumps({w: round(m, 3) for w, m in med.items()})}; {smi}", flush=True)
+    return med
+
+
 def nnd_log_summary(lines) -> tuple[list, list, list]:
     """(phase walls [(name, s)], updates per descent sweep, repaired nodes
     per link) from the log lines of an NN-descent build with nndProfile=1."""
@@ -100,6 +157,8 @@ def main() -> int:
     ap.add_argument("--efc", type=int, help="efConstruction (default 200; 100 with --nnd)")
     ap.add_argument("--profile-waves", action="store_true")
     ap.add_argument("--nnd", action="store_true", help="the NN-descent build at SIFT-1M, phase by phase")
+    ap.add_argument("--async", dest="split", action="store_true",
+                    help="one batch searched through the caller, a side stream, a thread and the dispatcher")
     args = ap.parse_args()
     args.rows = args.rows or (1_000_000 if args.nnd else 100_000)
     args.efc = args.efc or (100 if args.nnd else 200)
@@ -167,6 +226,8 @@ def main() -> int:
         parts = beam_parts_ms(idx.method.data.vecs, nq, ef)
         print(f"[beam parts] efSearch={ef}, device ms per iteration: "
               f"{json.dumps({a: round(b, 4) for a, b in parts.items()})}; {smi}", flush=True)
+    if args.split:
+        async_split(idx, queries, k, smi)
     if args.profile_waves:
         del idx
         torch.cuda.empty_cache()

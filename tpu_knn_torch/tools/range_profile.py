@@ -1,5 +1,6 @@
 """Wall and device time of range search over 1,000,000 x 128 f32 rows on
-one CUDA card, to compare two checkouts of the package on one machine, minutes apart.
+one CUDA card, and the wall of the kNN batch (k=10) over the same index,
+to compare two checkouts of the package on one machine, minutes apart.
 
 Run it by path, with the checkout under test first on the module path:
 
@@ -12,7 +13,8 @@ drifts from hour to hour, the device times do not. It builds
 seed=0)``, takes the median 10th-neighbour distance of the 2048 queries as
 the radius, and prints the median of ``--reps`` walls of
 ``range_query_batch`` and the device ms of the counts and the collect
-pass, with the card's name and power limit.
+pass, then the median of ``--reps`` walls of ``knn_query_batch``, with
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -77,6 +79,13 @@ def main() -> int:
           f"{sum(len(r.ids) for r in res)} hits, cap {cap}: wall median of {args.reps} "
           f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max {max(walls):.3f}); device ms "
           f"counts pass {counts:.3f}, collect pass {collect:.3f}; {smi}", flush=True)
+    walls = []
+    for _ in range(args.reps):
+        t0 = time.perf_counter()
+        idx.knn_query_batch(queries, 10)
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"[knn] {args.label}: knn_query_batch Q=2048 k=10, wall median of {args.reps} "
+          f"{statistics.median(walls):.3f} ms (min {min(walls):.3f}, max {max(walls):.3f}); {smi}", flush=True)
     return 0
 
 
