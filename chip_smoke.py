@@ -9,7 +9,8 @@ printed as it ends, each fatal on failure:
  1. environment: torch/CUDA versions, the card's name and power limit;
     IEEE f32 matmuls (no TF32) required;
  2. build: compile csrc/groupmin.cu (f32), csrc/groupmin_wgmma_i8.cu
-    (int8) and csrc/groupmin_wgmma.cu (bf16x3, bf16) for sm_90a, one nvcc
+    (int8), csrc/groupmin_wgmma.cu (bf16x3, bf16) and
+    csrc/groupmin_elementwise.cu (L1, LINF, LP, JS) for sm_90a, one nvcc
     each, side by side; registers and spills of every kernel and template
     instance, any ptxas warning or remark on the wgmma pipeline, the build
     time;
@@ -139,13 +140,22 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     float64 oracle; pass1Precision high and bfloat16 bit-identical to the
     f32 tier with their certified fractions, each reduced kernel within
     1e-5 of its plain version and within eps of the f32 kernel; l1 over
-    phase 4's 1M rows on the block route (median of 3 and its split, 256
-    queries against the f64 oracle); jsdivfast and renyidiv_fast (alpha
-    0.75) over the 1M histograms at 256 queries; every dense name at
-    20,000 rows (two-pass) and 3,000 (single pass), 256 queries each, lp at
-    p=3 and abdiv at alpha 1.2, beta 0.7, with range on l1 and
-    kldivgenfast, all against float64 oracles of the reference formulas
-    (ids equal except on ties within twice the f32 bound); HNSW, the
+    phase 4's 1M rows, pass 1 one launch of the elementwise group-min
+    kernel (csrc/groupmin_elementwise.cu; median of 7 and its split, 256
+    queries against the f64 oracle); that kernel's group-min and distance
+    epilogues in each form (L1, LINF, LP at p=3, JS and its sqrt post)
+    against their plain versions on 65,536 of phase 4's rows and of the
+    histograms with 2048 queries (LINF bit-equal, the others within rtol
+    5e-3), their times beside the plain versions', torch.cdist's and
+    their bounds (instructions an element pair counted in the kernel's
+    SASS), and an edge sweep with NaN, +-inf and zero rows, ragged Q and N
+    and D 8..136; jsdivfast and renyidiv_fast (alpha 0.75) over the 1M
+    histograms at 256 queries; every dense name at 20,000 rows (two-pass)
+    and 3,000 (single pass), 256 queries each, lp at p=3 and abdiv at
+    alpha 1.2, beta 0.7, with range on l1 and kldivgenfast, the
+    elementwise kernel's launches checked on each, all against float64
+    oracles of the reference formulas (ids equal except on ties within
+    twice the f32 bound); HNSW, the
     default Index("kldivgenfast", Params(dim=128)) over 20,000
     histograms (cut from 100,000; waves, M=16, efConstruction=200,
     waveSize=1024) with
@@ -278,8 +288,9 @@ Every [kernel] line at the main path's shapes prints the kernel's bound
 tier's dense peak: 67 TFLOP/s f32, 989 bf16, 1,979 TOP/s int8) and its
 share of it. No kernel lies on HNSW's own path, waves or NN-descent (their
 loops are torch ops, as they are XLA ops in tpu_knn); it reaches the f32
-kernel through GoldStandard and phase 4's exact ids. The block scan of
-the spaces with no affine form (l1, JS, Renyi) is torch ops too, as it is
+kernel through GoldStandard and phase 4's exact ids. The exact scan of
+the elementwise spaces (l1, linf, lp, dummy, JS) runs
+csrc/groupmin_elementwise.cu; Renyi's block scan is torch ops, as it is
 XLA ops in tpu_knn. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card or any phase fails.
@@ -570,7 +581,8 @@ def _breakdown(idx, queries, k: int, tier: str = "float32", reps: int = 5):
 
         mins = pass1()
         gsel = SS._select_groups(mins, k)
-        stages["pass1_block_scan"] = _cuda_ms(pass1, reps)
+        # an elementwise form runs one launch of csrc/groupmin_elementwise.cu
+        stages["pass1_elementwise" if space.pass1_elementwise() else "pass1_block_scan"] = _cuda_ms(pass1, reps)
         stages["select_groups"] = _cuda_ms(lambda: SS._select_groups(mins, k), reps)
     elif tier == "float32":
         mins = SS._pass1(space, qenc, data)
@@ -1805,6 +1817,303 @@ def _check_dense_oracle(label, name, ids, dists, q, x, k: int):
     return int(diff.sum())
 
 
+# ---- the elementwise kernel (csrc/groupmin_elementwise.cu) ----
+
+#: the kernel forms phase 17 times: (p, torch.cdist's p; None: no library call computes JS)
+EW_CHECK = {"l1": (None, 1.0), "linf": (None, float("inf")), "lp": (3.0, 3.0), "js": (None, None)}
+#: FP32 instruction issue of an H100 SXM: 132 SMs x 128 lanes x 1.98 GHz. The 67 TFLOP/s peak
+#: counts an FFMA as two operations; a subtraction, an addition or a max is one instruction.
+FP32_INSTR_PER_S = PEAK_OPS["float32"] / 2
+#: MUFU results (the special-function unit's lg2 and ex2) of an H100 SXM: 16 a clock an SM
+#: (CUDA C++ Programming Guide, throughput of the arithmetic instructions, compute capability
+#: 9.0), an eighth of the FP32 issue
+MUFU_PER_S = FP32_INSTR_PER_S / 8
+#: (FP32 instructions, MUFU operations) that an element pair of each form needs at least,
+#: whatever the implementation: l1 a subtraction (abs is a free modifier) and an addition;
+#: linf a subtraction and a NaN-carrying max; lp |a-b|^p = ex2(p lg2|a-b|), two MUFU beside the
+#: subtraction, the product with p and the addition; JS one lg2 of m = (a+b)/2, since
+#: 0.5(t(a) + t(b)) = 0.5(a log a + b log b) - m log m and the a log a and b log b sums are a
+#: query's and a row's, beside m, its clamp and one FFMA into the sum
+EW_MIN_OPS = {"l1": (2, 0), "linf": (2, 0), "lp": (3, 2), "js": (3, 1)}
+EW_RTOL, EW_ATOL = 5e-3, 1e-5
+EW_ROWS = 65_536
+#: the run of phase 17 that each elementwise row of the kernels record takes its launches from:
+#: the 1M cells' pass 1, and the 20,000-row two-pass and 3,000-row single-pass runs
+EW_RECORD_RUNS = {
+    "elementwise_groupmin_l1": "l1 1M", "elementwise_groupmin_linf": "linf twopass",
+    "elementwise_groupmin_lp": "lp twopass", "elementwise_groupmin_js": "jsdivfast 1M",
+    "elementwise_dists_l1": "l1 single", "elementwise_dists_linf": "linf single",
+    "elementwise_dists_lp": "lp single", "elementwise_dists_js": "jsdivfast single",
+}
+#: opcode prefixes of SASS that is no arithmetic: loads, stores, barriers, branches, moves from
+#: special or constant registers
+_SASS_NOT_ARITH = ("LD", "ST", "BAR", "BRA", "NOP", "EXIT", "DEPBAR", "BSSY", "BSYNC", "WARPSYNC", "MEMBAR",
+                   "S2R", "CS2R", "ULDC")
+
+
+def _sass_functions(lib_path) -> dict:
+    """{mangled name: {"ins": [(address, opcode, text)], "labels": {label: address}}} of a
+    library's SASS, from the toolkit's cuobjdump."""
+    import os
+    import shutil
+
+    exe = os.path.join(os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    exe = exe if os.path.exists(exe) else shutil.which("cuobjdump")
+    _require(exe is not None, lambda: "cuobjdump not found: the elementwise kernel's bound needs its SASS")
+    txt = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    funcs, cur, pending = {}, None, []
+    for ln in txt.splitlines():
+        m = re.match(r"\s*Function : (\S+)", ln)
+        if m:
+            cur, pending = funcs.setdefault(m.group(1), {"ins": [], "labels": {}}), []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if cur is not None and m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", ln)
+        if cur is not None and m:
+            addr, text = int(m.group(1), 16), m.group(2).strip()
+            for lab in pending:
+                cur["labels"][lab] = addr
+            pending = []
+            cur["ins"].append((addr, re.sub(r"^@!?U?P[T0-9]+\s+", "", text).split()[0], text))
+    return funcs
+
+
+def _branch_target(text: str, labels: dict):
+    lab, hexa = re.search(r"`\((\.L_x_\d+)\)", text), re.search(r"0x([0-9a-f]+)", text)
+    return labels.get(lab.group(1)) if lab else (int(hexa.group(1), 16) if hexa else None)
+
+
+def _inner_loop_path(fn) -> tuple:
+    """(loop, path) of a function's largest innermost loop (a backward
+    branch's range holding no other): every instruction of the loop body,
+    and those on its fall-through path, the one a pass takes when no
+    conditional branch is taken (unconditional forward branches followed):
+    the main path of logf and powf, whose special-value fix-ups and JS's
+    v > 0 terms sit behind branches."""
+    ins = fn["ins"]
+    loops = [(t, a) for a, op, text in ins if op.startswith("BRA")
+             for t in [_branch_target(text, fn["labels"])] if t is not None and t <= a]
+    inner = [(a, b) for a, b in loops if not any(a <= c and e <= b and (c, e) != (a, b) for c, e in loops)]
+    _require(bool(inner), lambda: "no loop in the SASS of an elementwise kernel")
+    head, tail = max(inner, key=lambda ab: ab[1] - ab[0])
+    loop = [t for t in ins if head <= t[0] <= tail]
+    at = {t[0]: i for i, t in enumerate(loop)}
+    path, i = [], 0
+    while True:
+        addr, op, text = loop[i]
+        path.append(loop[i])
+        if addr == tail:
+            return loop, path
+        tgt = _branch_target(text, fn["labels"]) if op.startswith("BRA") and not text.startswith("@") else None
+        _require(tgt is None or (tgt > addr and tgt in at), lambda: f"elementwise SASS: branch {text} at {addr:#x}")
+        i = at[tgt] if tgt is not None else i + 1
+
+
+def _ew_sass(lib_path) -> dict:
+    """{"form epilogue": counts} of each instance of the elementwise kernel:
+    the instructions of its inner loop, and the arithmetic ones on the
+    loop's fall-through path, per element pair of one pass of that loop
+    (ku k steps of a tq x tr register tile). The arithmetic count sets the
+    bound."""
+    from tpu_knn_torch.ops import elementwise as EW
+
+    out = {}
+    for name, fn in _sass_functions(lib_path).items():
+        m = re.search(r"groupmin_elementwise_kernelILi(\d)ELb(\d)E", name)
+        if not m:
+            continue
+        form = EW.KERNEL_FORMS[int(m.group(1))]
+        g = EW.geometry(form)
+        pairs = g["ku"] * g["tq"] * g["tr"]
+        loop, path = _inner_loop_path(fn)
+        arith = [op for _, op, _ in path if not op.startswith(_SASS_NOT_ARITH)]
+        ops = {}
+        for op in arith:
+            ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
+        out[f"{form} {'groupmin' if m.group(2) == '1' else 'dists'}"] = {
+            "arith_per_pair": len(arith) / pairs, "path_per_pair": len(path) / pairs, "loop": len(loop),
+            "pairs": pairs, "geometry": g, "opcodes": ops}
+    _require(len(out) == 2 * len(EW.KERNEL_FORMS), lambda: f"elementwise SASS: instances {sorted(out)}")
+    return out
+
+
+def _ew_bound_ms(form: str, qn: int, n: int, d: int, epilogue: str):
+    """(least ms, "bytes" or "operations") of one elementwise launch: q, x and pad read once and
+    the mins (or distances) written once over the HBM rate, against the form's least
+    operations (``EW_MIN_OPS``): every instruction an issue slot at the FP32 issue rate, the
+    MUFU operations at their own rate, whichever takes longer."""
+    fp32, mufu = EW_MIN_OPS[form]
+    nbytes = 4 * (qn * d + n * d + n) + 4 * qn * (n // 128 if epilogue == "groupmin" else n)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = qn * n * d * max((fp32 + mufu) / FP32_INSTR_PER_S, mufu / MUFU_PER_S)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _ew_measure(smi, label, form, epi, q, x, pad, p, cdist_p, sass, err, lib_reps) -> dict:
+    """Kernel, plain and torch.cdist's ms (CUDA events) of one epilogue of ``form`` on these
+    tensors, beside its bound and the SASS's issue efficiency: the kernel's own arithmetic
+    instructions an element pair at the FP32 issue rate over its time. Prints and returns
+    the numbers."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    kern, plain = ((EW.elementwise_groupmin, EW.elementwise_groupmin_reference) if epi == "groupmin"
+                   else (EW.elementwise_dists, EW.elementwise_dists_reference))
+    (qn, d), n = q.shape, x.shape[0]
+    lib_ms = _cuda_ms(lambda: torch.cdist(q, x, p=cdist_p), lib_reps) if cdist_p is not None else None
+    kms = _cuda_ms(lambda: kern(form, q, x, pad, p), 5)
+    pms = _cuda_ms(lambda: plain(form, q, x, pad, p), 1)
+    per_pair = sass[f"{form} {epi}"]["arith_per_pair"]
+    issue_ms = 1e3 * per_pair * qn * n * d / FP32_INSTR_PER_S
+    bms, by = _ew_bound_ms(form, qn, n, d, epi)
+    fp32, mufu = EW_MIN_OPS[form]
+    print(f"[dense] kernel {label} {form} {epi} Q={qn} N={n} D={d}: max |kernel - plain| {err:.4g} "
+          + ("(bit-equal)" if form == "linf" else f"(within rtol {EW_RTOL})")
+          + f"; kernel {kms:.3f} ms, plain {pms:.3f} ms, "
+          + (f"torch.cdist(p={cdist_p}) {lib_ms:.3f} ms" if lib_ms is not None else "no library call")
+          + f"; bound {bms:.3f} ms ({by}: {fp32} FP32 instructions and {mufu} MUFU operations an element pair "
+          f"at {FP32_INSTR_PER_S / 1e12:.1f} T and {MUFU_PER_S / 1e12:.2f} T/s), {bms / kms:.1%} of it; issue "
+          f"efficiency {issue_ms / kms:.1%} ({per_pair:.3f} of the SASS's arithmetic instructions an element pair "
+          f"take {issue_ms:.3f} ms at the FP32 issue rate); {smi}", flush=True)
+    return {"max_abs_err": err, "ms": kms, "plain_ms": pms, "library_ms": lib_ms, "bound_ms": bms,
+            "bound_by": by, "arith_per_pair": per_pair, "issue_ms": issue_ms, "shape": [qn, n, d]}
+
+
+def _ew_compare(label, got, ref, exact: bool) -> float:
+    """The kernel's output against its plain version's: NaN cell for NaN cell, each infinity
+    equal, finite cells bit-equal (``exact``) or within rtol 5e-3 / atol 1e-5. Returns the
+    max |difference| over the finite cells."""
+    import torch
+
+    _require(got.shape == ref.shape, lambda: f"{label}: shape {tuple(got.shape)}, plain {tuple(ref.shape)}")
+    nan_ok = torch.equal(torch.isnan(got), torch.isnan(ref))
+    inf_ok = torch.equal(torch.isinf(got), torch.isinf(ref)) and torch.equal(got[torch.isinf(got)],
+                                                                            ref[torch.isinf(ref)])
+    fin = torch.isfinite(got) & torch.isfinite(ref)
+    diff = (got[fin] - ref[fin]).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    close = bool((diff == 0).all()) if exact else bool((diff <= EW_RTOL * ref[fin].abs() + EW_ATOL).all())
+    _require(nan_ok and inf_ok and close, lambda: (
+        f"{label}: kernel against its plain version: NaN cells equal {nan_ok}, infinities equal {inf_ok}, "
+        f"finite cells {'bit-equal' if exact else 'within rtol 5e-3'} {close}, max |diff| {err:.4g}"))
+    return err
+
+
+def _ew_edge_sweep() -> int:
+    """Each form (lp at p 0.5 and 3, JS with and without its sqrt post) and both epilogues
+    against the plain versions at small shapes: Q 1, 7, 130 (ragged), N 128 and 384 (100 and
+    356 for the distance epilogue), D 8, 20 (zero columns appended), 24, 136, over histograms
+    and over signed normals, with a zero row, a NaN cell, a +inf and a -inf cell in the
+    corpus and a +inf cell and a zero row in the queries, and 1e30 pads. Returns the runs."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(7)
+    forms = (("l1", None), ("linf", None), ("lp", 0.5), ("lp", 3.0), ("js", None), ("jsmetr", None))
+    runs = 0
+    for d in (8, 20, 24, 136):
+        for n in (128, 384):
+            for qn in (1, 7, 130):
+                for kind in ("hist", "normal"):
+                    a = (rng.dirichlet(np.full(d, 0.1), n + qn) if kind == "hist"
+                         else rng.standard_normal((n + qn, d)) * 4).astype(np.float32)
+                    x, q = a[:n].copy(), a[n:].copy()
+                    x[3], x[5, 1], x[6, 2], x[7, 0] = 0.0, np.nan, np.inf, -np.inf
+                    if qn > 2:
+                        q[1, 0], q[2] = np.inf, 0.0
+                    pad = np.zeros(n, np.float32)
+                    pad[-5:] = PAD_TERM
+                    qt, xt, pt = (torch.from_numpy(v).to(dev) for v in (q, x, pad))
+                    # the kernel takes D a multiple of 8: zero columns, as the spaces append them
+                    zq, zx = (torch.nn.functional.pad(t, (0, -d % EW.D_MULTIPLE)) for t in (qt, xt))
+                    for form, p in forms:
+                        exact = form == "linf"
+                        got = EW.elementwise_groupmin(form, zq, zx, pt, p)
+                        _ew_compare(f"edge {form} p={p} groupmin Q={qn} N={n} D={d} {kind}", got,
+                                    EW.elementwise_groupmin_reference(form, qt, xt, pt, p), exact)
+                        nd = n - 28
+                        got = EW.elementwise_dists(form, zq, zx[:nd], pt[:nd], p)
+                        _ew_compare(f"edge {form} p={p} dists Q={qn} N={nd} D={d} {kind}", got,
+                                    EW.elementwise_dists_reference(form, qt, xt[:nd], pt[:nd], p), exact)
+                        runs += 2
+    torch.cuda.synchronize()
+    return runs
+
+
+def _ew_kernel_check(smi, x_sift, q_sift, x_hist, q_hist, sass: dict) -> dict:
+    """Both epilogues of the elementwise kernel in each form against their plain versions on
+    the first 65,536 rows (1e30 pads on the last 128) and every query: phase 4's rows for
+    L1, LINF and LP (p=3), the histograms for JS (and its sqrt post); kernel, plain and
+    torch.cdist's ms beside the bound. Returns {form: {epilogue: numbers}}."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    out = {}
+    for form, (p, cdist_p) in EW_CHECK.items():
+        xs, q = (x_hist, q_hist) if form == "js" else (x_sift, q_sift)
+        x = xs[:EW_ROWS].contiguous()
+        pad = torch.zeros(EW_ROWS, dtype=torch.float32, device=x.device)
+        pad[-128:] = PAD_TERM
+        out[form] = {}
+        for epi, kern, plain in (("groupmin", EW.elementwise_groupmin, EW.elementwise_groupmin_reference),
+                                 ("dists", EW.elementwise_dists, EW.elementwise_dists_reference)):
+            err = 0.0
+            for f in (("js", "jsmetr") if form == "js" else (form,)):
+                got = kern(f, q, x, pad, p)
+                torch.cuda.synchronize()
+                err = max(err, _ew_compare(f"{f} {epi} Q={q.shape[0]} N={EW_ROWS}", got, plain(f, q, x, pad, p),
+                                           exact=form == "linf"))
+                del got
+            out[form][epi] = _ew_measure(smi, f"{EW_ROWS}-row slice", form, epi, q, x, pad, p, cdist_p, sass,
+                                         err, 3)
+    return out
+
+
+def _ew_index_inputs(idx, queries):
+    """(form, p, q, x, pad): the elementwise form of ``idx``'s space and the tensors its scan
+    hands the kernel: the encoded queries, the padded store and its pads."""
+    space, data = idx.space, idx.method.data
+    form, p = space.pass1_elementwise()
+    qpts, _ = idx._bucket_query_points(queries)
+    return form, p, space.encode_queries(qpts)["q"], data.vecs, data.extra["pad"]
+
+
+def _ew_hold_index(label, idx, queries, route: str) -> float:
+    """The elementwise kernel against its plain version on the tensors ``idx``'s scan hands it:
+    pass 1's group mins over the whole store (``route`` "twopass"), or each chunk's distances
+    (the single pass and range). Returns the max |difference|."""
+    from tpu_knn_torch.ops import elementwise as EW
+
+    form, p, q, x, pad = _ew_index_inputs(idx, queries)
+    exact = form == "linf"
+    if route == "twopass":
+        return _ew_compare(f"{label} groupmin", EW.elementwise_groupmin(form, q, x, pad, p),
+                           EW.elementwise_groupmin_reference(form, q, x, pad, p), exact)
+    chunk, err = idx.method._chunk, 0.0
+    for s in range(0, x.shape[0], chunk):
+        xc, pc = x[s:s + chunk], pad[s:s + chunk]
+        err = max(err, _ew_compare(f"{label} dists rows {s}:{s + chunk}", EW.elementwise_dists(form, q, xc, pc, p),
+                                   EW.elementwise_dists_reference(form, q, xc, pc, p), exact))
+    return err
+
+
+def _ew_main_check(smi, label, idx, queries, cdist_p, sass) -> dict:
+    """The group-min epilogue at the shapes a 1M cell's pass 1 gives it (the index's own store,
+    pads and encoded queries) against its plain version on the same tensors, then timed beside
+    its bound and torch.cdist (one run: it writes every distance)."""
+    from tpu_knn_torch.ops import elementwise as EW
+
+    form, p, q, x, pad = _ew_index_inputs(idx, queries)
+    err = _ew_compare(f"{label} groupmin", EW.elementwise_groupmin(form, q, x, pad, p),
+                      EW.elementwise_groupmin_reference(form, q, x, pad, p), exact=form == "linf")
+    return _ew_measure(smi, label, EW.kernel_form(form), "groupmin", q, x, pad, p, cdist_p, sass, err, 1)
+
+
 def _phase_dense(smi, corpus, queries):
     """Phase 17: the dense spaces beyond l2, the scalar products and
     l2sqr_sift, over Dirichlet(0.1) histograms (the LDA topic histograms
@@ -1814,6 +2123,7 @@ def _phase_dense(smi, corpus, queries):
     from tpu_knn_torch import Index, Params
     from tpu_knn_torch.eval import GoldStandard
     from tpu_knn_torch.methods import seq_search as SS
+    from tpu_knn_torch.ops import elementwise as EW
     from tpu_knn_torch.ops import groupmin as GM
     from tpu_knn_torch.spaces.dense import ensure_cert_metadata
 
@@ -1896,7 +2206,12 @@ def _phase_dense(smi, corpus, queries):
     del idx, m, data, qenc, q, qt, xt, f32, mag
     torch.cuda.empty_cache()
 
-    # ---- l1 over phase 4's 1M sift_like rows: the block route ----
+    # ---- l1 over phase 4's 1M sift_like rows: pass 1 on the elementwise kernel ----
+    sass = _ew_sass(GM.build_all((EW.LIB,))[EW.LIB])
+    for key, c in sorted(sass.items()):
+        print(f"[dense] kernel {key}: inner loop {c['loop']} instructions for {c['pairs']} element pairs "
+              f"(geometry {c['geometry']}); its fall-through path {c['path_per_pair']:.3f} an element pair, "
+              f"{c['arith_per_pair']:.3f} of them arithmetic ({json.dumps(c['opcodes'])})", flush=True)
     x_dev = torch.from_numpy(corpus).to(dev)
     li = Index("l1", Params(dim=DIM), method="seq_search", device="cuda")
     tb = time.perf_counter()
@@ -1904,33 +2219,52 @@ def _phase_dense(smi, corpus, queries):
     li.build_index()
     torch.cuda.synchronize()
     build_l1 = time.perf_counter() - tb
-    GM.reset_launches()
-    d1, i1 = li.knn_query_batch(queries, K)
-    _require(li.method.last_route == "twopass" and sum(GM.launches.values()) == 0,
-             lambda: f"l1 1M: route {li.method.last_route}, launches {dict(GM.launches)}")
-    med1, tmin1, tmax1 = _median_ms(lambda: li.knn_query_batch(queries, K), 3)
-    stages1, _ = _breakdown(li, queries, K, reps=2)
-    print(f"[dense] l1 {N_CORPUS} x {DIM} sift_like: build {build_l1:.3f} s; route {li.method.last_route} (block "
-          f"scan, chunk {li.method._chunk}), no kernel launch; knn_query_batch Q={N_QUERIES} k={K}: median "
-          f"{med1:.3f} ms of 3 (min {tmin1:.3f}, max {tmax1:.3f}), {N_QUERIES / med1 * 1e3:.1f} qps; device ms per "
-          f"stage {json.dumps({k: round(v, 4) for k, v in stages1.items()})}; {smi}", flush=True)
+    ew_totals = dict.fromkeys(GM.ELEMENTWISE, 0)
+    ew_runs = {}
+
+    def ew_run(tag, fn):
+        """``fn()`` with every launch count set to 0 just before it; returns (its result, every
+        count just after). Keeps the elementwise kernel's counts as run ``tag``'s and adds them
+        to the phase's totals."""
+        GM.reset_launches()
+        res = fn()
+        got = dict(GM.launches)
+        ew_runs[tag] = {k: got[k] for k in GM.ELEMENTWISE}
+        for k in GM.ELEMENTWISE:
+            ew_totals[k] += got[k]
+        return res, got
+
+    def only(key, count=1):
+        """The launch counts of a run that launched ``key`` ``count`` times and nothing else."""
+        return {k: count if k == key else 0 for k in GM.launches}
+
+    (d1, i1), l1_launches = ew_run("l1 1M", lambda: li.knn_query_batch(queries, K))
+    _require(li.method.last_route == "twopass" and l1_launches == only("elementwise_groupmin_l1"),
+             lambda: f"l1 1M: route {li.method.last_route}, launches {l1_launches}")
+    med1, tmin1, tmax1 = _median_ms(lambda: li.knn_query_batch(queries, K))
+    stages1, _ = _breakdown(li, queries, K)
+    print(f"[dense] l1 {N_CORPUS} x {DIM} sift_like: build {build_l1:.3f} s; route {li.method.last_route} (pass 1 "
+          f"one elementwise group-min launch), launches {l1_launches}; knn_query_batch Q={N_QUERIES} k={K}: "
+          f"median {med1:.3f} ms of 7 (min {tmin1:.3f}, max {tmax1:.3f}), {N_QUERIES / med1 * 1e3:.1f} qps; "
+          f"device ms per stage {json.dumps({k: round(v, 4) for k, v in stages1.items()})}; {smi}", flush=True)
     nq1 = 256
     _check_dense_oracle(f"l1 {N_CORPUS} rows", "l1", i1[:nq1], d1[:nq1],
                         torch.from_numpy(queries[:nq1]).to(dev), x_dev, K)
-    # the library's one call for the same distances (torch.cdist, p=1) beside
-    # the port's block on one 65,536-row slice; used nowhere in the port
-    q_all, xs = torch.from_numpy(queries).to(dev), x_dev[:65536]
-    blk = li.space._block_impl({"q": q_all}, {"x": xs}, "float32")
-    lib = torch.cdist(q_all, xs, p=1)
-    rel = float(((blk - lib).abs() / lib.abs().clamp_min(1e-30)).max())
-    blk_ms = _cuda_ms(lambda: li.space._block_impl({"q": q_all}, {"x": xs}, "float32"), 3)
-    lib_ms = _cuda_ms(lambda: torch.cdist(q_all, xs, p=1), 3)
-    print(f"[dense] l1 distances of {N_QUERIES} queries to 65,536 rows: the port's block {blk_ms:.3f} ms, "
-          f"torch.cdist(p=1) {lib_ms:.3f} ms, max relative difference {rel:.3g}; {smi}", flush=True)
-    out["l1"] = {"build_s": build_l1, "ms": med1, "stages": stages1, "slice_block_ms": blk_ms,
-                 "slice_cdist_ms": lib_ms}
-    del blk, lib, q_all, xs
-    del li, x_dev
+    out["l1"] = {"build_s": build_l1, "ms": med1, "stages": stages1}
+    # pass 1's own launch shape: every group min against the plain version
+    ew_main = {"elementwise_groupmin_l1": _ew_main_check(smi, "l1 1M cell", li, queries, 1.0, sass)}
+    del li
+    torch.cuda.empty_cache()
+
+    # ---- the elementwise kernel against its plain versions: edge sweep, 65,536 rows ----
+    runs = _ew_edge_sweep()
+    print(f"[dense] kernel edge sweep: {runs} runs (l1, linf, lp at p 0.5 and 3, js, jsmetr; both epilogues; "
+          f"Q 1, 7, 130; N 128, 384 / 100, 356; D 8, 20 (zero columns appended), 24, 136; NaN, +-inf and zero "
+          f"cells, 1e30 pads): each NaN cell for NaN cell, linf bit-equal, the others within rtol {EW_RTOL}",
+          flush=True)
+    q_all = torch.from_numpy(queries).to(dev)
+    out["ew_kernel"] = _ew_kernel_check(smi, x_dev, q_all, hx_dev, hq_dev, sass)
+    del q_all, x_dev
     torch.cuda.empty_cache()
 
     # ---- jsdivfast and renyidiv_fast over the 1M histograms ----
@@ -1939,14 +2273,19 @@ def _phase_dense(smi, corpus, queries):
         ix = Index(name, Params(DENSE_PARAMS.get(name, {})), method="seq_search", device="cuda")
         ix.add_dense_batch(hx)
         ix.build_index()
-        dj, ij = ix.knn_query_batch(hq[:nqj], K)
+        (dj, ij), lj = ew_run(f"{name} 1M", lambda: ix.knn_query_batch(hq[:nqj], K))
+        want_l = only("elementwise_groupmin_js" if ix.space.pass1_elementwise() else None)
+        _require(ix.method.last_route == "twopass" and lj == want_l,
+                 lambda: f"{name}: route {ix.method.last_route}, launches {lj}")
         medj, tminj, tmaxj = _median_ms(lambda: ix.knn_query_batch(hq[:nqj], K), 3)
-        print(f"[dense] {name} {N_CORPUS} x {DIM}: route {ix.method.last_route}, knn_query_batch Q={nqj} k={K}: "
-              f"median {medj:.3f} ms of 3 (min {tminj:.3f}, max {tmaxj:.3f}), {nqj / medj * 1e3:.1f} qps; {smi}",
-              flush=True)
-        _require(ix.method.last_route == "twopass", lambda: f"{name}: route {ix.method.last_route}")
+        print(f"[dense] {name} {N_CORPUS} x {DIM}: route {ix.method.last_route}, launches {lj}, "
+              f"knn_query_batch Q={nqj} k={K}: median {medj:.3f} ms of 3 (min {tminj:.3f}, max {tmaxj:.3f}), "
+              f"{nqj / medj * 1e3:.1f} qps; {smi}", flush=True)
         _check_dense_oracle(f"{name} {N_CORPUS} rows", name, ij, dj, hq_dev[:nqj], hx_dev, K)
         out[name] = {"ms": medj, "queries": nqj}
+        if name == "jsdivfast":
+            ew_main["elementwise_groupmin_js"] = _ew_main_check(smi, "jsdivfast 1M cell", ix, hq[:nqj], None,
+                                                                sass)
         del ix
         torch.cuda.empty_cache()
 
@@ -1960,19 +2299,43 @@ def _phase_dense(smi, corpus, queries):
         for n, want in ((n2, "twopass"), (3000, "single")):
             ix = Index(name, Params(DENSE_PARAMS.get(name, {})), method="seq_search", device="cuda")
             ix.add_dense_batch(src[:n])
-            GM.reset_launches()
-            d, i = ix.knn_query_batch(qsrc[:nq2], K)
+            (d, i), lw = ew_run(f"{name} {want}", lambda: ix.knn_query_batch(qsrc[:nq2], K))
             _require(ix.method.last_route == want, lambda: f"{name} {n} rows: route {ix.method.last_route}")
             affine = ix.space.pass1_affine() is not None
-            _require((GM.launches["float32"] > 0) == (affine and want == "twopass"),
-                     lambda: f"{name} {n} rows: launches {dict(GM.launches)}")
+            ew = ix.space.pass1_elementwise()
+            # pass 1 one group-min launch, or the single pass one distance launch a chunk
+            want_ew = dict.fromkeys(GM.ELEMENTWISE, 0)
+            if ew is not None:
+                want_ew[EW.launch_key("groupmin" if want == "twopass" else "dists", ew[0])] = (
+                    1 if want == "twopass" else ix.method.data.ids.shape[0] // ix.method._chunk)
+            _require((lw["float32"] > 0) == (affine and want == "twopass") and ew_runs[f"{name} {want}"] == want_ew,
+                     lambda: f"{name} {n} rows: launches {lw}, want elementwise {want_ew}")
             _check_dense_oracle(f"{name} {want} route, {n} rows", name, i, d, qs_dev, xs_dev[:n], K)
-            routes[f"{name} {want}"] = GM.launches["float32"]
+            routes[f"{name} {want}"] = lw["float32"] + sum(want_ew.values())
+            if ew is not None:  # the launches this run made, on its own tensors
+                _ew_hold_index(f"{name} {want} route, {n} rows", ix, qsrc[:nq2], want)
             if n == n2 and name in ("l1", "kldivgenfast"):
-                _dense_range_check(name, ix, qsrc[:nq2], qs_dev, xs_dev, d)
+                _, lr = ew_run(f"{name} range", lambda: _dense_range_check(name, ix, qsrc[:nq2], qs_dev, xs_dev, d))
+                _require((lr["elementwise_dists_l1"] > 0) == (name == "l1"), lambda: f"range {name}: launches {lr}")
             del ix
         del xs_dev, qs_dev
+    print(f"[dense] the elementwise kernel held against its plain version on the tensors of every "
+          f"elementwise name's two-pass and single-pass runs above, within rtol {EW_RTOL} (linf bit-equal)",
+          flush=True)
     out["routes"] = routes
+    _require(all(c > 0 for c in ew_totals.values()),
+             lambda: f"an elementwise kernel instance never launched on phase 17's paths: {ew_totals}")
+    # each record row's launches and numbers come from the run that row names
+    out["ew_record"] = {}
+    for key, run in EW_RECORD_RUNS.items():
+        r = ew_main.get(key) or out["ew_kernel"][key.rsplit("_", 1)[1]][key.split("_")[1]]
+        out["ew_record"][key] = {**r, "launches": ew_runs[run][key], "launches_from": run}
+        _require(ew_runs[run][key] > 0, lambda: f"{key}: no launch in the run {run!r}: {ew_runs[run]}")
+    print(f"[dense] elementwise kernel launches on phase 17's paths, all runs {json.dumps(ew_totals)}; the "
+          f"kernels record's launches, each from its own run "
+          f"{json.dumps({k: [v['launches_from'], v['launches']] for k, v in out['ew_record'].items()})}; its "
+          f"numbers from the shapes {json.dumps({k: v['shape'] for k, v in out['ew_record'].items()})}",
+          flush=True)
     torch.cuda.empty_cache()
 
     # ---- HNSW: the default index over 20,000 histograms, waves (cut from 100,000: the cell has
@@ -4086,6 +4449,17 @@ def main() -> int:
          "bound_by": bound_ms[tier][1], "library_ms": None}
         for name, tier, src, rep, n_launch, err, kms, pms in rows
     ]}
+    # the elementwise kernel, each form and epilogue: the l1 and jsdivfast group mins at their
+    # 1M cells' shapes, the others at phase 17's 65,536-row check; launches from the run each
+    # row names (EW_RECORD_RUNS); library_ms: torch.cdist's distances for L1, LINF and LP
+    replaces = {"groupmin": "tpu_knn/methods/seq_search.py:233 pass1_jnp (XLA fusion)",
+                "dists": "tpu_knn/ops/distance.py:205 elementwise_blocked (XLA fusion)"}
+    for key, r in dn["ew_record"].items():
+        record["kernels"].append({
+            "name": key, "route": "cuda", "source": "tpu_knn_torch/csrc/groupmin_elementwise.cu",
+            "replaces": replaces[key.split("_")[1]], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

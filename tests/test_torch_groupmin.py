@@ -152,7 +152,7 @@ def test_groupmin_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         GM.build()
     assert not (tmp_path / "build").exists()
-    assert GM.launches == dict.fromkeys(GM.TIERS, 0)
+    assert GM.launches == dict.fromkeys(GM.TIERS + GM.ELEMENTWISE, 0)
 
 
 # ---- the wiring of the three kernel libraries, with the library faked ----
@@ -175,10 +175,11 @@ class _FakeLib:
 def test_groupmin_sources_and_entries():
     """f32 -> groupmin.cu, int8 -> groupmin_wgmma_i8.cu, high and bfloat16 ->
     groupmin_wgmma.cu; the two wgmma libraries take the query-image scratch,
-    each sized by its own function."""
+    each sized by its own function. The elementwise spaces' source is built
+    with them and is no tier."""
     assert {n: p.name for n, p in GM.SOURCES.items()} == {
         "groupmin": "groupmin.cu", "groupmin_wgmma": "groupmin_wgmma.cu",
-        "groupmin_wgmma_i8": "groupmin_wgmma_i8.cu"}
+        "groupmin_wgmma_i8": "groupmin_wgmma_i8.cu", "groupmin_elementwise": "groupmin_elementwise.cu"}
     assert all(p.exists() for p in GM.SOURCES.values())
     assert not (GM.INCLUDE_DIR / "groupmin_mma.cu").exists()
     assert GM._ENTRY == {
@@ -314,7 +315,7 @@ def test_groupmin_kernel_sources_split_by_instruction():
     assert "mbarrier.init" in (GM.INCLUDE_DIR / "wgmma_common.cuh").read_text()
 
 
-@pytest.mark.parametrize("name", ["groupmin", "groupmin_wgmma", "groupmin_wgmma_i8"])
+@pytest.mark.parametrize("name", ["groupmin", "groupmin_wgmma", "groupmin_wgmma_i8", "groupmin_elementwise"])
 def test_groupmin_epilogue_min_carries_nan(name):
     """Each kernel's group min is the NaN-carrying min.NaN.f32 of
     csrc/min_nan.cuh, as the plain version's torch.min: no bare fminf,

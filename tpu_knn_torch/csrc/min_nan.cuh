@@ -14,3 +14,11 @@ __device__ __forceinline__ float min_nan(float a, float b) {
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
 }
+
+// The NaN-carrying max (max.NaN.f32), for what the plain versions take with
+// torch.amax or torch.clamp_min: fmaxf would drop the NaN as fminf does.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}

@@ -5,19 +5,20 @@ Reference: include/method/seqsearch.h, src/method/seqsearch.cc, a
 per-object loop. Here it is a blocked scan over the whole query batch.
 kNN takes one of two routes (:meth:`SeqSearch._plan_knn`):
 
-  * single pass (:func:`_knn_device`): a chunked matmul scan with a
-    streaming top-k, for small corpora;
+  * single pass (:func:`_knn_device`): a chunked scan of distance blocks
+    (:func:`_chunk_dists`) with a streaming top-k, for small corpora;
   * two passes (:func:`_knn_device_twopass`): pass 1 keeps only each
     128-row group's min of the distance block (for a space with an affine
     factored form the group-min kernel, ops/groupmin.py, at the f32, int8,
-    bf16x3 or bf16 tier; for any other a chunked ``space.block`` scan,
+    bf16x3 or bf16 tier; for an elementwise form the group-min epilogue of
+    ops/elementwise.py; for any other a chunked ``space.block`` scan,
     :func:`_pass1_block`), a top-(k+margin) over the [Q, N/128] mins
     selects groups that provably hold the exact top-k (ops/topk.py GROUP;
     for the reduced tiers under a certificate with a per-block f32 redo),
     and pass 2 gathers those groups' rows and re-scores them exactly.
 
 Range search (:meth:`SeqSearch.range`) streams [Q, chunk] blocks of
-``space.block`` twice: once to count the hits per query, once to keep a
+:func:`_chunk_dists` twice: once to count the hits per query, once to keep a
 running smallest-``cap`` of them (:func:`_range_counts_device`,
 :func:`_range_collect_device`).
 
@@ -34,6 +35,7 @@ from ..core.dataset import DataStore, round_up
 from ..core.errors import IndexNotBuiltError
 from ..core.params import ParamManager, Params
 from ..core.registry import register_method
+from ..ops import elementwise as EW
 from ..ops import groupmin as GM
 from ..ops import topk as T
 from ..ops.graph import gather_row_groups, score_gathered
@@ -89,13 +91,24 @@ def _densify(space, qenc: dict, data) -> dict:
     return hook(qenc, {"vocab_mark": data.extra["vocab_mark"]}, scan=True)
 
 
+def _chunk_dists(space, qenc, data, ci: int, chunk: int, precision: str):
+    """Distances [Q, chunk] of the queries to corpus chunk ``ci``: for a
+    space with an elementwise form one launch of ops/elementwise.py's
+    distance epilogue, else ``space.block`` at ``precision``."""
+    ew = space.pass1_elementwise()
+    if ew is None:
+        return space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+    s, e = ci * chunk, (ci + 1) * chunk
+    return EW.elementwise_dists(ew[0], qenc["q"], data.vecs[s:e], data.extra["pad"][s:e], ew[1])
+
+
 def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):
     """Single-pass scan: [Q, chunk] blocks merged into a running top-k."""
     qenc = _densify(space, qenc, data)
     num_chunks = data.ids.shape[0] // chunk
 
     def chunk_dists(ci):
-        return space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        return _chunk_dists(space, qenc, data, ci, chunk, precision)
 
     d, pos = T.streaming_smallest_k(chunk_dists, num_chunks, chunk, _nq(qenc), k, data.ids.device)
     return d, _ids_of(data, pos), pos
@@ -226,9 +239,14 @@ def _pass1(space, qenc, data, tier: str = "float32") -> torch.Tensor:
 
 
 def _pass1_block(space, qenc, data, chunk: int, precision: str) -> torch.Tensor:
-    """Group mins f32[Q, N_pad/128] of a space with no affine form: a scan
-    of ``space.block`` at ``precision`` over ``chunk``-row slices, each
-    reduced to its 128-row group mins (tpu_knn's pass1_jnp)."""
+    """Group mins f32[Q, N_pad/128] of a space with no affine form
+    (tpu_knn's pass1_jnp): for an elementwise form one launch of
+    ops/elementwise.py's group-min epilogue over the whole corpus; for any
+    other a scan of ``space.block`` at ``precision`` over ``chunk``-row
+    slices, each reduced to its 128-row group mins."""
+    ew = space.pass1_elementwise()
+    if ew is not None:
+        return EW.elementwise_groupmin(ew[0], qenc["q"], data.vecs, data.extra["pad"], ew[1])
     nq = _nq(qenc)
     mins = []
     for ci in range(data.ids.shape[0] // chunk):
@@ -289,8 +307,9 @@ def _knn_device_twopass(space, qenc, data, k: int, chunk: int, precision: str,
 
     Pass 1 runs the fused group-min kernel for a space with an affine
     factored form (``space.pass1_affine``), which scans the whole corpus
-    in one launch; any other space takes :func:`_pass1_block` over
-    ``chunk``-row slices at ``precision``. One top-(k+margin) over the
+    in one launch; any other space takes :func:`_pass1_block` (one launch
+    of the elementwise group-min kernel, or ``chunk``-row slices of
+    ``space.block`` at ``precision``). One top-(k+margin) over the
     [Q, N/128] mins selects groups in lax.top_k's order (ascending min,
     ties by lower group), pass 2 re-scores their rows exactly and takes
     the final top-k.
@@ -334,7 +353,7 @@ def _range_counts_device(space, qenc, data, radius: float, chunk: int, precision
     qenc = _densify(space, qenc, data)
     acc = torch.zeros(_nq(qenc), dtype=torch.int32, device=data.ids.device)
     for ci in range(data.ids.shape[0] // chunk):
-        d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        d = _chunk_dists(space, qenc, data, ci, chunk, precision)
         acc += (d <= radius).sum(dim=1, dtype=torch.int32)
     return acc
 
@@ -346,7 +365,7 @@ def _range_collect_device(space, qenc, data, radius: float, cap: int, chunk: int
     qenc = _densify(space, qenc, data)
 
     def chunk_dists(ci):
-        d = space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
+        d = _chunk_dists(space, qenc, data, ci, chunk, precision)
         return torch.where(d <= radius, d, T.INF)  # a NaN distance is no hit
 
     return T.streaming_smallest_k(

@@ -1,0 +1,188 @@
+"""The exact scan of the spaces with no affine form: fused elementwise
+distance with a 128-row group-min epilogue or a distance epilogue.
+
+Counterpart of what XLA fuses in tpu_knn's ``pass1_jnp``
+(tpu_knn/methods/seq_search.py:233, a ``lax.scan`` of
+``elementwise_blocked`` blocks, tpu_knn/ops/distance.py:205, each reduced
+to its 128-row group mins) and in its single-pass and range scans of the
+same spaces. On a CUDA tensor each wrapper launches the hand-written
+kernel of ``csrc/groupmin_elementwise.cu`` on the current stream; on a CPU
+tensor it runs the plain PyTorch version, which is also what the kernel is
+held against on the card:
+
+  ========== ============================================ ================
+  form       plain version (ops/distance.py)              spaces
+  ========== ============================================ ================
+  ``l1``     ``l1_blocked``                               l1, dummy
+  ``linf``   ``linf_blocked``                             linf
+  ``lp``     ``lp_blocked`` (``p`` > 0, not 1, 2 or inf)  lp
+  ``js``     ``js_div_blocked``                           the JS divergences
+  ``jsmetr`` sqrt(max(``js_div_blocked``, 0))             the JS metrics
+  ========== ============================================ ================
+
+Both epilogues add ``pad`` (0, or 1e30 on padding rows) to each distance:
+:func:`elementwise_groupmin` returns the group mins f32[Q, N/128] (pass 1,
+one launch over the whole corpus), :func:`elementwise_dists` the
+distances f32[Q, N] (one launch a corpus slice). The source is built with
+the group-min kernels (ops/groupmin.py ``SOURCES``, ``build_all``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import distance as D
+from . import groupmin as GM
+
+GROUP = GM.GROUP
+LIB = "groupmin_elementwise"
+#: the kernel's forms, in its numbering; ops/groupmin.py's ``launches``
+#: counts each as ``elementwise_{epilogue}_{kernel form}``
+KERNEL_FORMS = ("l1", "linf", "lp", "js")
+#: every form a space may name -> (kernel form, sqrt post)
+FORMS = {"l1": (0, False), "linf": (1, False), "lp": (2, False), "js": (3, False), "jsmetr": (3, True)}
+#: D multiple the kernel takes: the caller appends zero columns up to it
+#: (the dense spaces pad D to 128)
+D_MULTIPLE = 8
+
+
+
+def kernel_form(form: str) -> str:
+    """The kernel form a space's form runs ("jsmetr" runs "js")."""
+    return KERNEL_FORMS[FORMS[form][0]]
+
+
+def launch_key(epilogue: str, form: str) -> str:
+    """The key of ops/groupmin.py's ``launches`` that counts ``form``'s
+    launches of ``epilogue`` ("groupmin" or "dists")."""
+    return f"elementwise_{epilogue}_{kernel_form(form)}"
+
+
+def distances(form: str, q: torch.Tensor, x: torch.Tensor, p: float | None = None) -> torch.Tensor:
+    """The plain distances f32[Q, N] of ``form`` (no padding term): the
+    spaces' block and the kernel's plain version share them."""
+    if form == "l1":
+        return D.l1_blocked(q, x)
+    if form == "linf":
+        return D.linf_blocked(q, x)
+    if form == "lp":
+        return D.lp_blocked(q, x, p)
+    if form not in ("js", "jsmetr"):
+        raise ValueError(f"unknown elementwise form {form!r}; known: {list(FORMS)}")
+    d = D.js_div_blocked(q, x)
+    return torch.sqrt(torch.clamp_min(d, 0.0)) if form == "jsmetr" else d
+
+
+def elementwise_dists_reference(form, q, x, pad, p=None) -> torch.Tensor:
+    """Plain version of the distance epilogue: :func:`distances` + pad."""
+    return distances(form, q, x, p) + pad[None, :]
+
+
+def elementwise_groupmin_reference(form, q, x, pad, p=None, chunk_bytes: int = 1 << 28) -> torch.Tensor:
+    """Plain version of the group-min epilogue: the distance epilogue's
+    plain version per corpus chunk, then ``reshape(...).amin(2)``. Chunks
+    keep the [Q, chunk] block under ``chunk_bytes``."""
+    qn, n = q.shape[0], x.shape[0]
+    step = max(GROUP, (chunk_bytes // (max(qn, 1) * 4)) // GROUP * GROUP)
+    outs = []
+    for s in range(0, n, step):
+        e = min(s + step, n)
+        dd = elementwise_dists_reference(form, q, x[s:e], pad[s:e], p)
+        outs.append(dd.view(qn, (e - s) // GROUP, GROUP).amin(dim=2))
+    return torch.cat(outs, dim=1) if outs else q.new_empty((qn, 0))
+
+
+def _check_contract(fn: str, form: str, q, x, pad, p, groupmin: bool) -> None:
+    if form not in FORMS:
+        raise ValueError(f"{fn}: unknown form {form!r}; known: {list(FORMS)}")
+    if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1] or pad.shape != (x.shape[0],):
+        raise ValueError(f"{fn} needs q [Q, D], x [N, D] and pad [N]; got "
+                         f"{tuple(q.shape)}, {tuple(x.shape)}, {tuple(pad.shape)}")
+    for name, t in (("q", q), ("x", x), ("pad", pad)):
+        if t.dtype != torch.float32 or t.device != q.device:
+            raise ValueError(f"{fn}: {name} must be float32 on {q.device}; got {t.dtype} on {t.device}")
+    if groupmin and x.shape[0] % GROUP:
+        raise ValueError(f"{fn} needs n % {GROUP} == 0; got n={x.shape[0]}")
+    if form == "lp" and not (p is not None and p > 0):
+        raise ValueError(f"{fn}: form 'lp' needs p > 0; got {p!r}")
+
+
+def _lib():
+    """The kernel's library (built by ops/groupmin.py), its entries typed."""
+    lib = GM._load(LIB)
+    vp, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.tk_elementwise.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64, i64, ctypes.c_int,
+                                   ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
+    lib.tk_elementwise.restype = ctypes.c_int
+    lib.tk_elementwise_geometry.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.tk_elementwise_geometry.restype = ctypes.c_int
+    return lib
+
+
+def geometry(form: str) -> dict:
+    """The kernel's tiling of ``form`` on the card: queries and rows a
+    thread, k steps in one pass of the inner loop, queries a block."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().tk_elementwise_geometry(FORMS[form][0], out)
+    if err != 0:
+        raise RuntimeError(f"groupmin_elementwise: no geometry for form {form!r} ({err})")
+    return dict(zip(("tq", "tr", "ku", "bq"), out))
+
+
+def _launch(epilogue: str, form: str, q, x, pad, p) -> torch.Tensor:
+    """One launch of the kernel on a CUDA tensor; raises if it is refused."""
+    for name, t in (("q", q), ("x", x), ("pad", pad)):
+        if not t.is_contiguous():
+            raise ValueError(f"elementwise_{epilogue}: {name} must be contiguous")
+    d = q.shape[1]
+    if d % D_MULTIPLE or d == 0:  # a copy here would copy the corpus every batch
+        raise ValueError(f"elementwise_{epilogue}: the kernel needs D a positive multiple of {D_MULTIPLE}; got "
+                         f"D={d} (append zero columns to q and x once: they change no distance of any form)")
+    for name, t in (("q", q), ("x", x)):
+        if t.data_ptr() % 16:  # the kernel loads 16-byte vectors
+            raise ValueError(f"elementwise_{epilogue}: {name} is not 16-byte aligned")
+    qn, n = q.shape[0], x.shape[0]
+    shape = (qn, n // GROUP) if epilogue == "groupmin" else (qn, n)
+    out = torch.empty(shape, dtype=torch.float32, device=q.device)
+    if qn == 0 or n == 0:
+        return out
+    kform, sqrt_post = FORMS[form]
+    pf = float(p) if form == "lp" else 0.0
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.tk_elementwise(kform, int(epilogue == "groupmin"), q.data_ptr(), x.data_ptr(), pad.data_ptr(),
+                                 out.data_ptr(), qn, n, d, pf, 1.0 / pf if pf else 0.0, int(sqrt_post), stream)
+    if err != 0:
+        msg = lib.tk_error_string(err).decode()
+        raise RuntimeError(f"groupmin_elementwise {epilogue} {form} kernel launch failed: {msg} ({err})")
+    GM.count_launch(launch_key(epilogue, form))
+    return out
+
+
+def elementwise_groupmin(form: str, q, x, pad, p=None) -> torch.Tensor:
+    """Group mins f32[Q, N/128] of ``form``'s distances plus ``pad``.
+
+    A CPU tensor runs :func:`elementwise_groupmin_reference`. A CUDA tensor
+    launches the kernel or raises; it never falls back."""
+    _check_contract("elementwise_groupmin", form, q, x, pad, p, groupmin=True)
+    if q.device.type == "cpu":
+        return elementwise_groupmin_reference(form, q, x, pad, p)
+    if q.device.type != "cuda":
+        raise ValueError(f"elementwise_groupmin: unsupported device {q.device}")
+    return _launch("groupmin", form, q, x, pad, p)
+
+
+def elementwise_dists(form: str, q, x, pad, p=None) -> torch.Tensor:
+    """Distances f32[Q, N] of ``form`` plus ``pad``, for one corpus slice.
+
+    A CPU tensor runs :func:`elementwise_dists_reference`. A CUDA tensor
+    launches the kernel or raises; it never falls back."""
+    _check_contract("elementwise_dists", form, q, x, pad, p, groupmin=False)
+    if q.device.type == "cpu":
+        return elementwise_dists_reference(form, q, x, pad, p)
+    if q.device.type != "cuda":
+        raise ValueError(f"elementwise_dists: unsupported device {q.device}")
+    return _launch("dists", form, q, x, pad, p)

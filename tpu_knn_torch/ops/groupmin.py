@@ -19,7 +19,10 @@ is held against on the card:
   ========== ============================== ==================================
 
 The tier follows the input, as in the TPU kernel: int8 ``q``/``x`` run the
-int8 tier whatever ``precision`` says; f32 inputs run ``precision``.
+int8 tier whatever ``precision`` says; f32 inputs run ``precision``. The
+spaces with no affine form have their own kernel,
+``csrc/groupmin_elementwise.cu`` (ops/elementwise.py), built here with the
+others.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface on first use, keyed by a hash of its source, of every file the
@@ -53,6 +56,8 @@ SOURCES = {
     "groupmin": _PKG / "csrc" / "groupmin.cu",
     "groupmin_wgmma": _PKG / "csrc" / "groupmin_wgmma.cu",
     "groupmin_wgmma_i8": _PKG / "csrc" / "groupmin_wgmma_i8.cu",
+    # the elementwise spaces' scan (ops/elementwise.py), built with the tiers
+    "groupmin_elementwise": _PKG / "csrc" / "groupmin_elementwise.cu",
 }
 #: where a source's ``#include "..."`` is looked up after its own directory
 INCLUDE_DIR = _PKG / "csrc"
@@ -75,8 +80,12 @@ _SCRATCH_BYTES = {
     "groupmin_wgmma_i8": ("tk_groupmin_i8_scratch_bytes", ()),
 }
 
-#: kernel launches made by :func:`fused_groupmin`, per tier (CUDA tensors only)
-launches = dict.fromkeys(TIERS, 0)
+#: the elementwise kernel's instances (ops/elementwise.py), by epilogue and
+#: kernel form, as its launches are counted
+ELEMENTWISE = tuple(f"elementwise_{e}_{f}" for e in ("groupmin", "dists") for f in ("l1", "linf", "lp", "js"))
+#: kernel launches (CUDA tensors only): :func:`fused_groupmin`'s per tier,
+#: ops/elementwise.py's per instance
+launches = dict.fromkeys(TIERS + ELEMENTWISE, 0)
 _launches_lock = threading.Lock()
 
 _libs: dict = {}
@@ -85,8 +94,15 @@ build_log: dict = {}
 
 
 def reset_launches() -> None:
-    for tier in launches:
-        launches[tier] = 0
+    for key in launches:
+        launches[key] = 0
+
+
+def count_launch(key: str) -> None:
+    """Adds one to ``launches[key]``: the dispatcher's worker and a caller
+    may launch at once."""
+    with _launches_lock:
+        launches[key] += 1
 
 
 def _nvcc() -> str:
@@ -322,6 +338,5 @@ def fused_groupmin(q, x, q_term, x_term, scale: float, precision: str = "float32
     if err != 0:
         msg = lib.tk_error_string(err).decode()
         raise RuntimeError(f"groupmin {tier} kernel launch failed: {msg} ({err})")
-    with _launches_lock:  # the dispatcher's worker and a caller may launch at once
-        launches[tier] += 1
+    count_launch(tier)
     return out

@@ -63,6 +63,15 @@ class Space:
         distance. Return None when the distance doesn't factor this way."""
         return None
 
+    def pass1_elementwise(self):
+        """If the distance is an elementwise form of ops/elementwise.py
+        (reduce over D of f(q[d], x[d]), then a post), return (form, p) so
+        the exact scan runs its kernel: pass 1's group mins in one launch,
+        the single-pass and range scans' distances one launch a chunk. p is
+        the exponent of form "lp", else None. Return None for any other
+        distance."""
+        return None
+
     def pass1_post(self, s, qenc):
         """Map the affine surrogate of :meth:`pass1_affine` to the true
         distance (e.g. sqrt for l2). Must be exact, not just monotone."""

@@ -34,6 +34,7 @@ from ..core.errors import InvalidArgumentError
 from ..core.params import ParamManager, Params
 from ..core.registry import register_space
 from ..ops import distance as D
+from ..ops import elementwise as E
 from .base import Space
 
 #: Large-but-finite mask value for padded corpus rows (kept finite so that
@@ -185,6 +186,13 @@ class LpSpaceBase(DenseSpace):
     def pass1_affine(self):
         return (-2.0, 1.0, 1.0) if self.p == 2.0 else None
 
+    def pass1_elementwise(self):
+        if self.p == 2.0:
+            return None
+        if self.p == 1.0:
+            return ("l1", None)
+        return ("linf", None) if math.isinf(self.p) else ("lp", self.p)
+
     def pass1_post(self, s, qenc):
         return torch.sqrt(torch.clamp_min(s, 0.0))
 
@@ -204,11 +212,8 @@ class LpSpaceBase(DenseSpace):
                 qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision
             )
             return torch.sqrt(torch.clamp_min(d2, 0.0))
-        if self.p == 1.0:
-            return D.l1_blocked(qenc["q"], xc["x"])
-        if math.isinf(self.p):
-            return D.linf_blocked(qenc["q"], xc["x"])
-        return D.lp_blocked(qenc["q"], xc["x"], self.p)
+        form, p = self.pass1_elementwise()
+        return E.distances(form, qenc["q"], xc["x"], p)
 
 
 @register_space("l2")
@@ -475,8 +480,12 @@ class JSDivSpace(DenseSpace):
     """JS divergence, blocked elementwise (not matmul-factorable because of
     log(q+x); reference: distcomp_js.cc)."""
 
+    def pass1_elementwise(self):
+        return ("js", None)
+
     def _block_impl(self, qenc, xc, precision):
-        return D.js_div_blocked(qenc["q"], xc["x"])
+        form, _ = self.pass1_elementwise()  # "js", or "jsmetr" for the metric
+        return E.distances(form, qenc["q"], xc["x"])
 
 
 @register_space("jsdivslow")  # C++ registry spelling (space_js.h:29)
@@ -502,8 +511,8 @@ class JSMetricSpace(JSDivSpace):
     metric variants, init_spaces.h:69-71; registered but absent from the
     Zig whitelist)."""
 
-    def _block_impl(self, qenc, xc, precision):
-        return torch.sqrt(torch.clamp_min(super()._block_impl(qenc, xc, precision), 0.0))
+    def pass1_elementwise(self):
+        return ("jsmetr", None)
 
 
 @register_space("jsmetrslow")
@@ -701,5 +710,8 @@ class DummySpace(DenseSpace):
 
     name = "dummy"
 
+    def pass1_elementwise(self):
+        return ("l1", None)
+
     def _block_impl(self, qenc, xc, precision):
-        return D.l1_blocked(qenc["q"], xc["x"])
+        return E.distances("l1", qenc["q"], xc["x"])
