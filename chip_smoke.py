@@ -143,16 +143,18 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     phase 4's 1M rows, pass 1 one launch of the elementwise group-min
     kernel (csrc/groupmin_elementwise.cu; median of 7 and its split, 256
     queries against the f64 oracle); that kernel's group-min and distance
-    epilogues in each form (L1, LINF, LP at p=3, JS and its sqrt post)
-    against their plain versions on 65,536 of phase 4's rows and of the
-    histograms with 2048 queries (LINF bit-equal, the others within rtol
-    5e-3), their times beside the plain versions', torch.cdist's and
-    their bounds (instructions an element pair counted in the kernel's
-    SASS), and an edge sweep with NaN, +-inf and zero rows, ragged Q and N
-    and D 8..136; jsdivfast and renyidiv_fast (alpha 0.75) over the 1M
-    histograms at 256 queries; every dense name at 20,000 rows (two-pass)
-    and 3,000 (single pass), 256 queries each, lp at p=3 and abdiv at
-    alpha 1.2, beta 0.7, with range on l1 and kldivgenfast, the
+    epilogues in each form (L1, LINF, LP at p=3 (a product chain) and
+    p=0.7 (ex2 lg2 on the MUFU), JS and its sqrt post) against their plain
+    versions on 65,536 of phase 4's rows and of the histograms with 2048
+    queries (LINF bit-equal, the others within rtol 5e-3), their times
+    beside the plain versions', torch.cdist's and their bounds (least
+    FP32 and MUFU operations an element pair; the SASS's count beside),
+    and an edge sweep with NaN, +-inf and zero rows, ragged Q and N, D
+    8..136, lp at p 0.5, 0.7 and 3-8, JS self pairs exactly 0; jsdivfast
+    and renyidiv_fast (alpha 0.75) over the 1M histograms at 256 queries;
+    every dense name at 20,000 rows (two-pass) and 3,000 (single pass),
+    256 queries each, lp at p=3 and at p=0.7 and abdiv at alpha 1.2, beta
+    0.7, with range on l1 and kldivgenfast, the
     elementwise kernel's launches checked on each, all against float64
     oracles of the reference formulas (ids equal except on ties within
     twice the f32 bound); HNSW, the
@@ -1658,16 +1660,17 @@ def _histograms(n: int, d: int, seed: int):
     return g / g.sum(axis=1, keepdims=True)
 
 
-def _dense_f64(name: str, q, x):
+def _dense_f64(name: str, q, x, params=None):
     """(d, s) float64 [Q, C]: the distance of each query row to each corpus
     row, and a magnitude s such that (D + 8) * u * s bounds the error of
     the port's f32 evaluation (the sum of the absolute terms it adds; for
     Renyi, (1 + |log g|) / |a - 1|). Plain torch in float64 from the
     reference formulas with tpu_knn's clamps, independent of the port's
-    code. The JS metric gives the JS divergence (compare squared)."""
+    code. The JS metric gives the JS divergence (compare squared).
+    ``params``: the space's parameters, DENSE_PARAMS' by default."""
     import torch
 
-    p = DENSE_PARAMS.get(name, {})
+    p = DENSE_PARAMS.get(name, {}) if params is None else params
     dim = q.shape[1]
 
     def lg(v):
@@ -1741,7 +1744,7 @@ def _dense_rows_per_chunk(name: str, nq: int, d: int) -> int:
     return max(256, (2 << 30) // per_row)
 
 
-def _dense_oracle(name: str, q, x, k: int):
+def _dense_oracle(name: str, q, x, k: int, params=None):
     """Float64 top-k (ascending; ties by lower position) of ``name`` over
     the corpus ``x``, chunk by chunk: (dists [Q, k], positions [Q, k])."""
     import torch
@@ -1751,7 +1754,7 @@ def _dense_oracle(name: str, q, x, k: int):
     best_d = torch.empty((q.shape[0], 0), dtype=torch.float64, device=q.device)
     best_i = torch.empty((q.shape[0], 0), dtype=torch.int64, device=q.device)
     for s in range(0, x.shape[0], step):
-        d, _ = _dense_f64(name, q64, x[s:s + step].double())
+        d, _ = _dense_f64(name, q64, x[s:s + step].double(), params)
         allv = torch.cat([best_d, d], 1)
         alli = torch.cat([best_i, torch.arange(s, s + d.shape[1], device=q.device).expand(q.shape[0], -1)], 1)
         best_d, sel = torch.sort(allv, dim=1, stable=True)
@@ -1760,20 +1763,20 @@ def _dense_oracle(name: str, q, x, k: int):
     return best_d, best_i
 
 
-def _dense_pairs(name: str, q, x, pos):
+def _dense_pairs(name: str, q, x, pos, params=None):
     """(d, s) float64 [Q, k] of each query against its own rows x[pos]."""
     import torch
 
     q64 = q.double()
     d, s = [], []
     for r in range(q.shape[0]):  # [1, k] each: small
-        dr, sr = _dense_f64(name, q64[r:r + 1], x[pos[r]].double())
+        dr, sr = _dense_f64(name, q64[r:r + 1], x[pos[r]].double(), params)
         d.append(dr[0])
         s.append(sr[0])
     return torch.stack(d), torch.stack(s)
 
 
-def _check_dense_oracle(label, name, ids, dists, q, x, k: int):
+def _check_dense_oracle(label, name, ids, dists, q, x, k: int, params=None):
     """The port's kNN result against the float64 oracle of ``name``: ids
     equal except on ties, a tie being two ids whose f64 distances lie
     within 2B, B = (D + 8) * u * s the bound on the f32 evaluation of
@@ -1785,12 +1788,12 @@ def _check_dense_oracle(label, name, ids, dists, q, x, k: int):
 
     dev = q.device
     square = name.startswith("jsmetr")
-    od, oi = _dense_oracle(name, q, x, k)
+    od, oi = _dense_oracle(name, q, x, k, params)
     ids_t = torch.as_tensor(ids.astype(np.int64), device=dev)
     valid = od < PAD_TERM
     _require(bool((ids_t[valid] >= 0).all()), lambda: f"{label}: an id of -1 where the oracle has a row")
-    dret, sret = _dense_pairs(name, q, x, ids_t.clamp(min=0))
-    _, sor = _dense_pairs(name, q, x, oi)
+    dret, sret = _dense_pairs(name, q, x, ids_t.clamp(min=0), params)
+    _, sor = _dense_pairs(name, q, x, oi, params)
     bound = (q.shape[1] + 8) * U * torch.maximum(sret, sor)
     got = torch.as_tensor(dists, device=dev).double()
     if square:
@@ -1819,8 +1822,10 @@ def _check_dense_oracle(label, name, ids, dists, q, x, k: int):
 
 # ---- the elementwise kernel (csrc/groupmin_elementwise.cu) ----
 
-#: the kernel forms phase 17 times: (p, torch.cdist's p; None: no library call computes JS)
-EW_CHECK = {"l1": (None, 1.0), "linf": (None, float("inf")), "lp": (3.0, 3.0), "js": (None, None)}
+#: phase 17's timed checks of the elementwise kernel at 65,536 rows: label -> (form, p, torch.cdist's
+#: p; None: no library call computes JS). lp at p=3 runs a product chain, at p=0.7 the MUFU route.
+EW_CHECK = {"l1": ("l1", None, 1.0), "linf": ("linf", None, float("inf")), "lp": ("lp", 3.0, 3.0),
+            "lp p=0.7": ("lp", 0.7, 0.7), "js": ("js", None, None)}
 #: FP32 instruction issue of an H100 SXM: 132 SMs x 128 lanes x 1.98 GHz. The 67 TFLOP/s peak
 #: counts an FFMA as two operations; a subtraction, an addition or a max is one instruction.
 FP32_INSTR_PER_S = PEAK_OPS["float32"] / 2
@@ -1830,20 +1835,30 @@ FP32_INSTR_PER_S = PEAK_OPS["float32"] / 2
 MUFU_PER_S = FP32_INSTR_PER_S / 8
 #: (FP32 instructions, MUFU operations) that an element pair of each form needs at least,
 #: whatever the implementation: l1 a subtraction (abs is a free modifier) and an addition;
-#: linf a subtraction and a NaN-carrying max; lp |a-b|^p = ex2(p lg2|a-b|), two MUFU beside the
-#: subtraction, the product with p and the addition; JS one lg2 of m = (a+b)/2, since
+#: linf a subtraction and a NaN-carrying max; lp at a p that is no integer |a-b|^p =
+#: ex2(p lg2|a-b|), two MUFU beside the subtraction, the product with p and the addition (at an
+#: integer p a product chain and no MUFU: _ew_min_ops); JS one lg2 of m = (a+b)/2, since
 #: 0.5(t(a) + t(b)) = 0.5(a log a + b log b) - m log m and the a log a and b log b sums are a
 #: query's and a row's, beside m, its clamp and one FFMA into the sum
 EW_MIN_OPS = {"l1": (2, 0), "linf": (2, 0), "lp": (3, 2), "js": (3, 1)}
 EW_RTOL, EW_ATOL = 5e-3, 1e-5
 EW_ROWS = 65_536
-#: the run of phase 17 that each elementwise row of the kernels record takes its launches from:
-#: the 1M cells' pass 1, and the 20,000-row two-pass and 3,000-row single-pass runs
-EW_RECORD_RUNS = {
-    "elementwise_groupmin_l1": "l1 1M", "elementwise_groupmin_linf": "linf twopass",
-    "elementwise_groupmin_lp": "lp twopass", "elementwise_groupmin_js": "jsdivfast 1M",
-    "elementwise_dists_l1": "l1 single", "elementwise_dists_linf": "linf single",
-    "elementwise_dists_lp": "lp single", "elementwise_dists_js": "jsdivfast single",
+#: the lp powers of the edge sweep: the MUFU route (0.5, 0.7) and every product chain's instance
+EW_SWEEP_P = (0.5, 0.7, 3.0, 4.0, 5.0, 6.0, 7.0, 8.0)
+#: each elementwise row of the kernels record -> (the launch count it reads, the run of phase 17
+#: that count comes from: the 1M cells' pass 1, the 20,000-row two-pass and 3,000-row
+#: single-pass runs; where its other numbers come from: a 1M cell's pass 1 or an EW_CHECK label)
+EW_RECORD = {
+    "elementwise_groupmin_l1": ("elementwise_groupmin_l1", "l1 1M", "l1 1M"),
+    "elementwise_groupmin_linf": ("elementwise_groupmin_linf", "linf twopass", "linf"),
+    "elementwise_groupmin_lp": ("elementwise_groupmin_lp", "lp twopass", "lp"),
+    "elementwise_groupmin_lp_p0.7": ("elementwise_groupmin_lp", "lp p=0.7 twopass", "lp p=0.7"),
+    "elementwise_groupmin_js": ("elementwise_groupmin_js", "jsdivfast 1M", "jsdivfast 1M"),
+    "elementwise_dists_l1": ("elementwise_dists_l1", "l1 single", "l1"),
+    "elementwise_dists_linf": ("elementwise_dists_linf", "linf single", "linf"),
+    "elementwise_dists_lp": ("elementwise_dists_lp", "lp single", "lp"),
+    "elementwise_dists_lp_p0.7": ("elementwise_dists_lp", "lp p=0.7 single", "lp p=0.7"),
+    "elementwise_dists_js": ("elementwise_dists_js", "jsdivfast single", "js"),
 }
 #: opcode prefixes of SASS that is no arithmetic: loads, stores, barriers, branches, moves from
 #: special or constant registers
@@ -1887,66 +1902,114 @@ def _branch_target(text: str, labels: dict):
     return labels.get(lab.group(1)) if lab else (int(hexa.group(1), 16) if hexa else None)
 
 
-def _inner_loop_path(fn) -> tuple:
-    """(loop, path) of a function's largest innermost loop (a backward
-    branch's range holding no other): every instruction of the loop body,
-    and those on its fall-through path, the one a pass takes when no
-    conditional branch is taken (unconditional forward branches followed):
-    the main path of logf and powf, whose special-value fix-ups and JS's
-    v > 0 terms sit behind branches."""
+def _inner_loop_paths(fn) -> list:
+    """[(loop, path)] of each of a function's innermost loops (a backward
+    branch's range holding no other), largest first: every instruction of
+    the loop body, and those on its fall-through path, the one a pass takes
+    when no conditional branch is taken (unconditional forward branches
+    followed): the main path of the special-value fix-ups and selects that
+    ptxas puts behind branches."""
     ins = fn["ins"]
     loops = [(t, a) for a, op, text in ins if op.startswith("BRA")
              for t in [_branch_target(text, fn["labels"])] if t is not None and t <= a]
     inner = [(a, b) for a, b in loops if not any(a <= c and e <= b and (c, e) != (a, b) for c, e in loops)]
     _require(bool(inner), lambda: "no loop in the SASS of an elementwise kernel")
-    head, tail = max(inner, key=lambda ab: ab[1] - ab[0])
-    loop = [t for t in ins if head <= t[0] <= tail]
-    at = {t[0]: i for i, t in enumerate(loop)}
-    path, i = [], 0
-    while True:
-        addr, op, text = loop[i]
-        path.append(loop[i])
-        if addr == tail:
-            return loop, path
-        tgt = _branch_target(text, fn["labels"]) if op.startswith("BRA") and not text.startswith("@") else None
-        _require(tgt is None or (tgt > addr and tgt in at), lambda: f"elementwise SASS: branch {text} at {addr:#x}")
-        i = at[tgt] if tgt is not None else i + 1
+    out = []
+    for head, tail in sorted(inner, key=lambda ab: ab[0] - ab[1]):
+        loop = [t for t in ins if head <= t[0] <= tail]
+        at = {t[0]: i for i, t in enumerate(loop)}
+        path, i = [], 0
+        while True:
+            addr, op, text = loop[i]
+            path.append(loop[i])
+            if addr == tail:
+                break
+            tgt = _branch_target(text, fn["labels"]) if op.startswith("BRA") and not text.startswith("@") else None
+            _require(tgt is None or (tgt > addr and tgt in at),
+                     lambda: f"elementwise SASS: branch {text} at {addr:#x}")
+            i = at[tgt] if tgt is not None else i + 1
+        out.append((loop, path))
+    return out
 
 
 def _ew_sass(lib_path) -> dict:
-    """{"form epilogue": counts} of each instance of the elementwise kernel:
-    the instructions of its inner loop, and the arithmetic ones on the
-    loop's fall-through path, per element pair of one pass of that loop
-    (ku k steps of a tq x tr register tile). The arithmetic count sets the
-    bound."""
+    """{"instance epilogue": counts} of each instance of the elementwise kernel (named as
+    ops/elementwise.py's ``instance`` names them: l1, linf, lp (the MUFU route), lp3..lp8 (the
+    product chains), js): the instructions of its loop over the element pairs, and the
+    arithmetic ones on the loop's fall-through path, per element pair of one pass of that loop
+    (ku k steps of a tq x tr register tile). JS has two such loops: the one for tiles of
+    non-negative values is counted, the guarded one (a negative or NaN value in the tile) is
+    given as ``guarded_per_pair``. The arithmetic count gives the issue efficiency."""
     from tpu_knn_torch.ops import elementwise as EW
 
     out = {}
     for name, fn in _sass_functions(lib_path).items():
-        m = re.search(r"groupmin_elementwise_kernelILi(\d)ELb(\d)E", name)
+        m = re.search(r"groupmin_elementwise_kernelILi(\d)ELi(\d+)ELb(\d)E", name)
         if not m:
             continue
-        form = EW.KERNEL_FORMS[int(m.group(1))]
-        g = EW.geometry(form)
+        form, power = EW.KERNEL_FORMS[int(m.group(1))], int(m.group(2))
+        p = float(power) if power else None
+        g = EW.geometry(form, p)
         pairs = g["ku"] * g["tq"] * g["tr"]
-        loop, path = _inner_loop_path(fn)
-        arith = [op for _, op, _ in path if not op.startswith(_SASS_NOT_ARITH)]
+        loops = []  # (arithmetic on the path, loop, path, its opcodes) of each loop over the pairs
+        for loop, path in _inner_loop_paths(fn):
+            arith = [op for _, op, _ in path if not op.startswith(_SASS_NOT_ARITH)]
+            if len(arith) >= pairs:
+                loops.append((len(arith), loop, path, arith))
+        want = 2 if form == "js" else 1
+        _require(len(loops) == want, lambda: f"elementwise SASS {name}: {len(loops)} loops over the pairs, want {want}")
+        loops.sort(key=lambda t: t[0])
+        n_arith, loop, path, arith = loops[0]
         ops = {}
         for op in arith:
             ops[op.split(".")[0]] = ops.get(op.split(".")[0], 0) + 1
-        out[f"{form} {'groupmin' if m.group(2) == '1' else 'dists'}"] = {
-            "arith_per_pair": len(arith) / pairs, "path_per_pair": len(path) / pairs, "loop": len(loop),
-            "pairs": pairs, "geometry": g, "opcodes": ops}
-    _require(len(out) == 2 * len(EW.KERNEL_FORMS), lambda: f"elementwise SASS: instances {sorted(out)}")
+        key = f"{EW.instance(form, p)} {'groupmin' if m.group(3) == '1' else 'dists'}"
+        out[key] = {"arith_per_pair": n_arith / pairs, "path_per_pair": len(path) / pairs, "loop": len(loop),
+                    "pairs": pairs, "geometry": g, "opcodes": ops}
+        if len(loops) > 1:
+            out[key]["guarded_per_pair"] = loops[1][0] / pairs
+    powers = (None,) + tuple(float(v) for v in EW.LP_POWERS)
+    want_keys = {f"{EW.instance(f, p)} {e}" for f in EW.KERNEL_FORMS for p in (powers if f == "lp" else (None,))
+                 for e in ("groupmin", "dists")}
+    _require(set(out) == want_keys, lambda: f"elementwise SASS: instances {sorted(out)}, want {sorted(want_keys)}")
     return out
 
 
-def _ew_bound_ms(form: str, qn: int, n: int, d: int, epilogue: str):
+def _chain_len(p: int) -> int:
+    """The fewest multiplications that make t^p from t: the length of p's shortest addition
+    chain, by iterative deepening (p=3 and 4: 2; 5, 6 and 8: 3; 7: 4)."""
+
+    def reach(chain, depth):
+        top = chain[-1]
+        left = depth - (len(chain) - 1)
+        if top == p:
+            return True
+        if left == 0 or top << left < p:
+            return False
+        sums = {a + b for a in chain for b in chain if top < a + b <= p}
+        return any(reach(chain + [v], depth) for v in sorted(sums, reverse=True))
+
+    depth = 0
+    while not reach([1], depth):
+        depth += 1
+    return depth
+
+
+def _ew_min_ops(form: str, p=None) -> tuple:
+    """(FP32 instructions, MUFU operations) that an element pair of ``form`` needs at least
+    (``EW_MIN_OPS``); lp at an integer p a product chain: the subtraction and p's shortest
+    chain of multiplications, the last one fused into the addition, no MUFU (p=3: (3, 0))."""
+    if form == "lp" and p is not None and float(p).is_integer() and p >= 1:
+        return 1 + max(_chain_len(int(p)), 1), 0
+    return EW_MIN_OPS[form]
+
+
+def _ew_bound_ms(form: str, qn: int, n: int, d: int, epilogue: str, p=None):
     """(least ms, "bytes" or "operations") of one elementwise launch: q, x and pad read once and
     the mins (or distances) written once over the HBM rate, against the form's least
-    operations (``EW_MIN_OPS``): every instruction an issue slot at the FP32 issue rate, the
-    MUFU operations at their own rate, whichever takes longer."""
-    fp32, mufu = EW_MIN_OPS[form]
+    operations at ``p`` (``_ew_min_ops``): every instruction an issue slot at the FP32 issue
+    rate, the MUFU operations at their own rate, whichever takes longer."""
+    fp32, mufu = _ew_min_ops(form, p)
     nbytes = 4 * (qn * d + n * d + n) + 4 * qn * (n // 128 if epilogue == "groupmin" else n)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = qn * n * d * max((fp32 + mufu) / FP32_INSTR_PER_S, mufu / MUFU_PER_S)
@@ -1967,11 +2030,13 @@ def _ew_measure(smi, label, form, epi, q, x, pad, p, cdist_p, sass, err, lib_rep
     lib_ms = _cuda_ms(lambda: torch.cdist(q, x, p=cdist_p), lib_reps) if cdist_p is not None else None
     kms = _cuda_ms(lambda: kern(form, q, x, pad, p), 5)
     pms = _cuda_ms(lambda: plain(form, q, x, pad, p), 1)
-    per_pair = sass[f"{form} {epi}"]["arith_per_pair"]
+    inst = EW.instance(form, p)
+    per_pair = sass[f"{inst} {epi}"]["arith_per_pair"]
     issue_ms = 1e3 * per_pair * qn * n * d / FP32_INSTR_PER_S
-    bms, by = _ew_bound_ms(form, qn, n, d, epi)
-    fp32, mufu = EW_MIN_OPS[form]
-    print(f"[dense] kernel {label} {form} {epi} Q={qn} N={n} D={d}: max |kernel - plain| {err:.4g} "
+    bms, by = _ew_bound_ms(form, qn, n, d, epi, p)
+    fp32, mufu = _ew_min_ops(form, p)
+    print(f"[dense] kernel {label} {form}{'' if p is None else f' p={p}'} (instance {inst}) {epi} Q={qn} N={n} "
+          f"D={d}: max |kernel - plain| {err:.4g} "
           + ("(bit-equal)" if form == "linf" else f"(within rtol {EW_RTOL})")
           + f"; kernel {kms:.3f} ms, plain {pms:.3f} ms, "
           + (f"torch.cdist(p={cdist_p}) {lib_ms:.3f} ms" if lib_ms is not None else "no library call")
@@ -2003,19 +2068,22 @@ def _ew_compare(label, got, ref, exact: bool) -> float:
     return err
 
 
-def _ew_edge_sweep() -> int:
-    """Each form (lp at p 0.5 and 3, JS with and without its sqrt post) and both epilogues
-    against the plain versions at small shapes: Q 1, 7, 130 (ragged), N 128 and 384 (100 and
-    356 for the distance epilogue), D 8, 20 (zero columns appended), 24, 136, over histograms
-    and over signed normals, with a zero row, a NaN cell, a +inf and a -inf cell in the
-    corpus and a +inf cell and a zero row in the queries, and 1e30 pads. Returns the runs."""
+def _ew_edge_sweep() -> tuple:
+    """Each form (lp at every p of EW_SWEEP_P, JS with and without its sqrt post) and both
+    epilogues against the plain versions at small shapes: Q 1, 7, 130 (ragged), N 128 and 384
+    (100 and 356 for the distance epilogue), D 8, 20 (zero columns appended), 24, 136, over
+    histograms and over signed normals, with a zero row, a NaN cell, a +inf and a -inf cell in
+    the corpus and a +inf cell and a zero row in the queries, and 1e30 pads. Then JS's self
+    pairs at each D: the first 64 histogram rows (and their special cells) as queries, the
+    kernel's js and jsmetr distances exactly 0.0 wherever the plain version's are. Returns
+    (runs, the self-pair cells that are 0)."""
     import torch
     from tpu_knn_torch.ops import elementwise as EW
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(7)
-    forms = (("l1", None), ("linf", None), ("lp", 0.5), ("lp", 3.0), ("js", None), ("jsmetr", None))
-    runs = 0
+    forms = (("l1", None), ("linf", None), *(("lp", p) for p in EW_SWEEP_P), ("js", None), ("jsmetr", None))
+    runs = zeros = 0
     for d in (8, 20, 24, 136):
         for n in (128, 384):
             for qn in (1, 7, 130):
@@ -2041,36 +2109,50 @@ def _ew_edge_sweep() -> int:
                         _ew_compare(f"edge {form} p={p} dists Q={qn} N={nd} D={d} {kind}", got,
                                     EW.elementwise_dists_reference(form, qt, xt[:nd], pt[:nd], p), exact)
                         runs += 2
+                    if kind == "hist" and n == 384 and qn == 130:
+                        for form in ("js", "jsmetr"):
+                            got = EW.elementwise_dists(form, zx[:64].contiguous(), zx, pt)
+                            ref = EW.elementwise_dists_reference(form, xt[:64], xt, pt)
+                            _ew_compare(f"edge {form} self pairs D={d}", got, ref, False)
+                            zero = ref == 0
+                            # every diagonal cell but the +inf row's (NaN) is 0 in the plain version
+                            _require(bool((got[zero] == 0).all()) and int(zero.diagonal().sum()) == 63,
+                                     lambda: f"edge {form} self pairs D={d}: {int((got[zero] != 0).sum())} of "
+                                             f"{int(zero.sum())} plain zeros not 0.0 in the kernel, "
+                                             f"max {float(got[zero].abs().max()):.3g}; diagonal zeros "
+                                             f"{int(zero.diagonal().sum())}")
+                            zeros += int(zero.sum())
+                            runs += 1
     torch.cuda.synchronize()
-    return runs
+    return runs, zeros
 
 
 def _ew_kernel_check(smi, x_sift, q_sift, x_hist, q_hist, sass: dict) -> dict:
-    """Both epilogues of the elementwise kernel in each form against their plain versions on
-    the first 65,536 rows (1e30 pads on the last 128) and every query: phase 4's rows for
-    L1, LINF and LP (p=3), the histograms for JS (and its sqrt post); kernel, plain and
-    torch.cdist's ms beside the bound. Returns {form: {epilogue: numbers}}."""
+    """Both epilogues of the elementwise kernel in each check of EW_CHECK against their plain
+    versions on the first 65,536 rows (1e30 pads on the last 128) and every query: phase 4's
+    rows for L1, LINF and LP (p=3 and 0.7), the histograms for JS (and its sqrt post); kernel,
+    plain and torch.cdist's ms beside the bound. Returns {label: {epilogue: numbers}}."""
     import torch
     from tpu_knn_torch.ops import elementwise as EW
 
     out = {}
-    for form, (p, cdist_p) in EW_CHECK.items():
+    for label, (form, p, cdist_p) in EW_CHECK.items():
         xs, q = (x_hist, q_hist) if form == "js" else (x_sift, q_sift)
         x = xs[:EW_ROWS].contiguous()
         pad = torch.zeros(EW_ROWS, dtype=torch.float32, device=x.device)
         pad[-128:] = PAD_TERM
-        out[form] = {}
+        out[label] = {}
         for epi, kern, plain in (("groupmin", EW.elementwise_groupmin, EW.elementwise_groupmin_reference),
                                  ("dists", EW.elementwise_dists, EW.elementwise_dists_reference)):
             err = 0.0
             for f in (("js", "jsmetr") if form == "js" else (form,)):
                 got = kern(f, q, x, pad, p)
                 torch.cuda.synchronize()
-                err = max(err, _ew_compare(f"{f} {epi} Q={q.shape[0]} N={EW_ROWS}", got, plain(f, q, x, pad, p),
-                                           exact=form == "linf"))
+                err = max(err, _ew_compare(f"{f} p={p} {epi} Q={q.shape[0]} N={EW_ROWS}", got,
+                                           plain(f, q, x, pad, p), exact=form == "linf"))
                 del got
-            out[form][epi] = _ew_measure(smi, f"{EW_ROWS}-row slice", form, epi, q, x, pad, p, cdist_p, sass,
-                                         err, 3)
+            out[label][epi] = _ew_measure(smi, f"{EW_ROWS}-row slice", form, epi, q, x, pad, p, cdist_p, sass,
+                                          err, 3)
     return out
 
 
@@ -2211,7 +2293,9 @@ def _phase_dense(smi, corpus, queries):
     for key, c in sorted(sass.items()):
         print(f"[dense] kernel {key}: inner loop {c['loop']} instructions for {c['pairs']} element pairs "
               f"(geometry {c['geometry']}); its fall-through path {c['path_per_pair']:.3f} an element pair, "
-              f"{c['arith_per_pair']:.3f} of them arithmetic ({json.dumps(c['opcodes'])})", flush=True)
+              f"{c['arith_per_pair']:.3f} of them arithmetic ({json.dumps(c['opcodes'])})"
+              + (f"; the guarded loop (a negative or NaN value in the tile) {c['guarded_per_pair']:.3f}"
+                 if "guarded_per_pair" in c else ""), flush=True)
     x_dev = torch.from_numpy(corpus).to(dev)
     li = Index("l1", Params(dim=DIM), method="seq_search", device="cuda")
     tb = time.perf_counter()
@@ -2252,16 +2336,17 @@ def _phase_dense(smi, corpus, queries):
                         torch.from_numpy(queries[:nq1]).to(dev), x_dev, K)
     out["l1"] = {"build_s": build_l1, "ms": med1, "stages": stages1}
     # pass 1's own launch shape: every group min against the plain version
-    ew_main = {"elementwise_groupmin_l1": _ew_main_check(smi, "l1 1M cell", li, queries, 1.0, sass)}
+    ew_main = {"l1 1M": _ew_main_check(smi, "l1 1M cell", li, queries, 1.0, sass)}
     del li
     torch.cuda.empty_cache()
 
     # ---- the elementwise kernel against its plain versions: edge sweep, 65,536 rows ----
-    runs = _ew_edge_sweep()
-    print(f"[dense] kernel edge sweep: {runs} runs (l1, linf, lp at p 0.5 and 3, js, jsmetr; both epilogues; "
-          f"Q 1, 7, 130; N 128, 384 / 100, 356; D 8, 20 (zero columns appended), 24, 136; NaN, +-inf and zero "
-          f"cells, 1e30 pads): each NaN cell for NaN cell, linf bit-equal, the others within rtol {EW_RTOL}",
-          flush=True)
+    runs, zeros = _ew_edge_sweep()
+    print(f"[dense] kernel edge sweep: {runs} runs (l1, linf, lp at p {', '.join(f'{p:g}' for p in EW_SWEEP_P)}, "
+          f"js, jsmetr; both epilogues; Q 1, 7, 130; N 128, 384 / 100, 356; D 8, 20 (zero columns appended), "
+          f"24, 136; NaN, +-inf and zero cells, 1e30 pads; JS self pairs): each NaN cell for NaN cell, linf "
+          f"bit-equal, the others within rtol {EW_RTOL}; the {zeros} self-pair cells the plain version makes "
+          f"0 are 0.0 in the kernel", flush=True)
     q_all = torch.from_numpy(queries).to(dev)
     out["ew_kernel"] = _ew_kernel_check(smi, x_dev, q_all, hx_dev, hq_dev, sass)
     del q_all, x_dev
@@ -2284,23 +2369,24 @@ def _phase_dense(smi, corpus, queries):
         _check_dense_oracle(f"{name} {N_CORPUS} rows", name, ij, dj, hq_dev[:nqj], hx_dev, K)
         out[name] = {"ms": medj, "queries": nqj}
         if name == "jsdivfast":
-            ew_main["elementwise_groupmin_js"] = _ew_main_check(smi, "jsdivfast 1M cell", ix, hq[:nqj], None,
-                                                                sass)
+            ew_main["jsdivfast 1M"] = _ew_main_check(smi, "jsdivfast 1M cell", ix, hq[:nqj], None, sass)
         del ix
         torch.cuda.empty_cache()
 
-    # ---- every name at 20,000 rows, both routes; range on l1 and kldivgenfast ----
+    # ---- every name at 20,000 rows, both routes, and lp at p=0.7 (the elementwise kernel's MUFU
+    # route); range on l1 and kldivgenfast ----
     n2, nq2 = 20_000, 256
     routes = {}
-    for name in DENSE_NAMES:
+    cells = [(name, name, DENSE_PARAMS.get(name, {})) for name in DENSE_NAMES] + [("lp p=0.7", "lp", {"p": 0.7})]
+    for label, name, params in cells:
         src, qsrc = (corpus, queries) if name in ("l1", "dummy", "linf", "lp") else (hx, hq)
         xs_dev = torch.from_numpy(src[:n2]).to(dev)
         qs_dev = torch.from_numpy(qsrc[:nq2]).to(dev)
         for n, want in ((n2, "twopass"), (3000, "single")):
-            ix = Index(name, Params(DENSE_PARAMS.get(name, {})), method="seq_search", device="cuda")
+            ix = Index(name, Params(params), method="seq_search", device="cuda")
             ix.add_dense_batch(src[:n])
-            (d, i), lw = ew_run(f"{name} {want}", lambda: ix.knn_query_batch(qsrc[:nq2], K))
-            _require(ix.method.last_route == want, lambda: f"{name} {n} rows: route {ix.method.last_route}")
+            (d, i), lw = ew_run(f"{label} {want}", lambda: ix.knn_query_batch(qsrc[:nq2], K))
+            _require(ix.method.last_route == want, lambda: f"{label} {n} rows: route {ix.method.last_route}")
             affine = ix.space.pass1_affine() is not None
             ew = ix.space.pass1_elementwise()
             # pass 1 one group-min launch, or the single pass one distance launch a chunk
@@ -2308,12 +2394,12 @@ def _phase_dense(smi, corpus, queries):
             if ew is not None:
                 want_ew[EW.launch_key("groupmin" if want == "twopass" else "dists", ew[0])] = (
                     1 if want == "twopass" else ix.method.data.ids.shape[0] // ix.method._chunk)
-            _require((lw["float32"] > 0) == (affine and want == "twopass") and ew_runs[f"{name} {want}"] == want_ew,
-                     lambda: f"{name} {n} rows: launches {lw}, want elementwise {want_ew}")
-            _check_dense_oracle(f"{name} {want} route, {n} rows", name, i, d, qs_dev, xs_dev[:n], K)
-            routes[f"{name} {want}"] = lw["float32"] + sum(want_ew.values())
+            _require((lw["float32"] > 0) == (affine and want == "twopass") and ew_runs[f"{label} {want}"] == want_ew,
+                     lambda: f"{label} {n} rows: launches {lw}, want elementwise {want_ew}")
+            _check_dense_oracle(f"{label} {want} route, {n} rows", name, i, d, qs_dev, xs_dev[:n], K, params)
+            routes[f"{label} {want}"] = lw["float32"] + sum(want_ew.values())
             if ew is not None:  # the launches this run made, on its own tensors
-                _ew_hold_index(f"{name} {want} route, {n} rows", ix, qsrc[:nq2], want)
+                _ew_hold_index(f"{label} {want} route, {n} rows", ix, qsrc[:nq2], want)
             if n == n2 and name in ("l1", "kldivgenfast"):
                 _, lr = ew_run(f"{name} range", lambda: _dense_range_check(name, ix, qsrc[:nq2], qs_dev, xs_dev, d))
                 _require((lr["elementwise_dists_l1"] > 0) == (name == "l1"), lambda: f"range {name}: launches {lr}")
@@ -2327,10 +2413,10 @@ def _phase_dense(smi, corpus, queries):
              lambda: f"an elementwise kernel instance never launched on phase 17's paths: {ew_totals}")
     # each record row's launches and numbers come from the run that row names
     out["ew_record"] = {}
-    for key, run in EW_RECORD_RUNS.items():
-        r = ew_main.get(key) or out["ew_kernel"][key.rsplit("_", 1)[1]][key.split("_")[1]]
-        out["ew_record"][key] = {**r, "launches": ew_runs[run][key], "launches_from": run}
-        _require(ew_runs[run][key] > 0, lambda: f"{key}: no launch in the run {run!r}: {ew_runs[run]}")
+    for key, (counter, run, numbers) in EW_RECORD.items():
+        r = ew_main.get(numbers) or out["ew_kernel"][numbers][key.split("_")[1]]
+        out["ew_record"][key] = {**r, "launches": ew_runs[run][counter], "launches_from": run}
+        _require(ew_runs[run][counter] > 0, lambda: f"{key}: no launch in the run {run!r}: {ew_runs[run]}")
     print(f"[dense] elementwise kernel launches on phase 17's paths, all runs {json.dumps(ew_totals)}; the "
           f"kernels record's launches, each from its own run "
           f"{json.dumps({k: [v['launches_from'], v['launches']] for k, v in out['ew_record'].items()})}; its "
@@ -4451,7 +4537,8 @@ def main() -> int:
     ]}
     # the elementwise kernel, each form and epilogue: the l1 and jsdivfast group mins at their
     # 1M cells' shapes, the others at phase 17's 65,536-row check; launches from the run each
-    # row names (EW_RECORD_RUNS); library_ms: torch.cdist's distances for L1, LINF and LP
+    # row names (EW_RECORD; lp at p=3 and, in rows of their own, at p=0.7); library_ms:
+    # torch.cdist's distances for L1, LINF and LP
     replaces = {"groupmin": "tpu_knn/methods/seq_search.py:233 pass1_jnp (XLA fusion)",
                 "dists": "tpu_knn/ops/distance.py:205 elementwise_blocked (XLA fusion)"}
     for key, r in dn["ew_record"].items():

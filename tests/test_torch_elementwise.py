@@ -10,6 +10,11 @@ rows only: XLA's CPU backend flushes subnormals, so where a negative row
 drives m below 1e-38 its clamp's log is -inf in tpu_knn and log(1e-38)
 in the port (torch keeps the subnormal), as on the card."""
 
+import contextlib
+import re
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -263,3 +268,188 @@ def test_scan_routes_through_the_wrappers(monkeypatch, name, want):
     assert s.method.last_route == "single"
     s.range_query_batch(q, 0.5)
     assert calls == ([("elementwise_dists", *want, 1024)] * 9 if want else [])
+
+
+# ---- the kernel's per-pair arithmetic (csrc/groupmin_elementwise.cu), modelled in f32 torch ops
+# with torch.log2 / torch.exp2 standing in for the card's MUFU lg2 / ex2 ----
+
+JS_TINY2 = np.float32(2) * np.float32(1e-38)  # 2e-38, normal: the clamp of lg2(a + b)
+HALF_MAX = np.float32(np.finfo(np.float32).max / 2)  # past it 2a overflows
+JS_POST = np.float32(0.5 * np.log(2.0))  # the sums are in log2 units
+
+
+def _ipow(t, n):
+    """t^n by squaring, the kernel's product chain: (t^(n/2))^2 or t^(n-1) t."""
+    if n == 1:
+        return t
+    if n % 2 == 0:
+        h = _ipow(t, n // 2)
+        return h * h
+    return _ipow(t, n - 1) * t
+
+
+def _model_lp(q, x, p):
+    """LP as the kernel takes it: a product chain at a p of LP_POWERS, else ex2(p lg2 t); the sum,
+    then s^(1/p)."""
+    t = (q[:, None, :] - x[None, :, :]).abs()
+    power = EW.lp_power(p)
+    terms = _ipow(t, power) if power else torch.exp2(p * torch.log2(t))
+    return terms.sum(-1) ** (1.0 / p)
+
+
+def _js_lg2(s):
+    return torch.log2(torch.clamp_min(s, float(JS_TINY2)))  # clamp_min keeps NaN, as max.NaN does
+
+
+def _js_row_lg2(v):
+    """The staged log of an element: lg2 of 2 max(v, 1e-38) as the pair log takes a + a; lg2(v) + 1
+    past FLT_MAX / 2."""
+    return torch.where(v > float(HALF_MAX), torch.log2(v) + 1.0, _js_lg2(2.0 * v))
+
+
+def _model_js(q, x, metric: bool):
+    """JS as the kernel takes it: one lg2 a pair, a (La - L) + b (Lb - L) where both values are
+    non-negative, the plain version's selects (v > 0 ? v (Lv - L) : 0) where one is negative or
+    NaN (the kernel decides per staged tile; on a pair of non-negative values both forms give the
+    same term), then 0.5 ln 2 and, for the metric, sqrt(max(., 0))."""
+    a, b = q[:, None, :], x[None, :, :]
+    la, lb = _js_row_lg2(q)[:, None, :], _js_row_lg2(x)[None, :, :]
+    lm = _js_lg2(a + b)
+    fast = a * (la - lm) + b * (lb - lm)
+    guarded = torch.where(a > 0, a * (la - lm), 0.0) + torch.where(b > 0, b * (lb - lm), 0.0)
+    d = torch.where((a >= 0) & (b >= 0), fast, guarded).sum(-1) * float(JS_POST)
+    return torch.sqrt(torch.clamp_min(d, 0.0)) if metric else d
+
+
+def _model(form, q, x, p):
+    return _model_lp(q, x, p) if form == "lp" else _model_js(q, x, form == "jsmetr")
+
+
+def _assert_same(got, want):
+    """NaN for NaN, equal infinities, the finite cells within rtol 5e-3 / atol 1e-5."""
+    got, want = np.asarray(got), np.asarray(want)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+MODEL_CASES = [("lp", p, kind) for p in (3.0, 4.0, 5.0, 0.7, 2.5) for kind in ("normal", "hist")] + [
+    (form, None, kind) for form in ("js", "jsmetr") for kind in ("hist", "normal", "huge")]
+
+
+def _model_inputs(kind, seed):
+    """The edge sweep's inputs (zero rows, NaN, +-inf cells); "huge": histograms with a cell past
+    FLT_MAX / 2 in a query and in a corpus row and one below it in another, in one column, so
+    that the query's a + b overflows against both. One huge cell a pair: the kernel sums in log2
+    units, 2.885 times the plain version's sum, so two such terms overflow there first."""
+    q, x, _ = _inputs("hist" if kind == "huge" else kind, seed)
+    if kind == "huge":
+        q[4, 3], x[8, 3], x[9, 3] = 2e38, 3e38, 1.5e38
+    return q, x
+
+
+@pytest.mark.parametrize("form,p,kind", MODEL_CASES)
+def test_kernel_arithmetic_model_matches_plain(form, p, kind):
+    """The kernel's per-pair arithmetic, modelled in f32, against the plain distances
+    (ops/elementwise.distances): product chains at p 3, 4, 5; ex2(p lg2 t) at p 0.7 and 2.5; JS
+    in log2 units with the 2e-38 clamp, the staged lg2(2a) and the guard for negative and NaN
+    values; on histograms and signed normals with zero rows, NaN and +-inf cells (and, for JS,
+    values past FLT_MAX / 2 and an a + b that overflows)."""
+    q, x = _t(*_model_inputs(kind, seed=MODEL_CASES.index((form, p, kind))))
+    want = EW.distances(form, q, x, p)
+    got = _model(form, q, x, p)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    _assert_same(got, want)
+    if kind == "huge" and form == "js":  # the overflowing pairs: -inf in both
+        assert got[4, 8] == want[4, 8] == got[4, 9] == want[4, 9] == -np.inf
+
+
+@pytest.mark.parametrize("form,p", [("lp", 3.0), ("lp", 4.0), ("lp", 5.0), ("lp", 0.7), ("lp", 2.5),
+                                    ("js", None), ("jsmetr", None)])
+def test_kernel_arithmetic_model_matches_tpu_knn(form, p):
+    """The same model against tpu_knn's lp_blocked / js_div_blocked on non-negative rows (XLA's CPU
+    flushes subnormals: signed rows drive its JS clamp to -inf) with zero rows, NaN and +inf."""
+    q, x, _ = _inputs("hist", seed=40)
+    _assert_same(_model(form, *_t(q, x), p), _jax_dists(form, q, x, p))
+
+
+@pytest.mark.parametrize("form", ["js", "jsmetr"])
+def test_js_self_pairs_are_exactly_zero(form):
+    """A row against itself: La - L is 0 exactly, so the modelled kernel's JS and JS metric are
+    0.0 wherever the plain version's are (every diagonal cell but the +inf row's, NaN in both)."""
+    _, x, _ = _inputs("hist", seed=41)
+    xt = torch.from_numpy(x[:64])
+    got, want = _model(form, xt, xt, None), EW.distances(form, xt, xt)
+    zero = want == 0
+    assert int(zero.diagonal().sum()) == 63 and bool(torch.isnan(want[6, 6]))
+    assert bool((got[zero] == 0).all())
+    _assert_same(got, want)
+
+
+@pytest.mark.parametrize("p,want", [(3.0, 3), (4, 4), (8.0, 8), (0.7, 0), (2.5, 0), (9.0, 0), (2.0, 0)])
+def test_lp_power_routes(p, want):
+    """lp takes a product chain at a p of LP_POWERS (3-8), the MUFU route at any other p; the
+    source instantiates exactly those powers."""
+    assert EW.lp_power(p) == want
+    assert EW.instance("lp", p) == (f"lp{want}" if want else "lp") and EW.instance("jsmetr") == "js"
+    src = (Path(EW.__file__).parent.parent / "csrc" / "groupmin_elementwise.cu").read_text()
+    powers = re.search(r"#define TK_LP_POWERS\(X\) (.*)", src).group(1)
+    assert tuple(int(v) for v in re.findall(r"X\((\d+)\)", powers)) == EW.LP_POWERS
+
+
+@pytest.mark.parametrize("epilogue", ["groupmin", "dists"])
+@pytest.mark.parametrize("form,p,power", [("lp", 3.0, 3), ("lp", 4.0, 4), ("lp", 0.7, 0), ("lp", 2.5, 0),
+                                          ("js", None, 0), ("jsmetr", None, 0)])
+def test_launch_passes_route_and_parameters(monkeypatch, epilogue, form, p, power):
+    """What _launch hands the library (a spy in place of ``_lib``): the kernel form, LP's power
+    (3 and 4 their product chains, 0.7 and 2.5 the MUFU route), the epilogue, the shapes, p and
+    1/p, the sqrt post, the stream; and one count on the epilogue's and form's launch key."""
+    calls = []
+
+    class Spy:
+        def tk_elementwise(self, *args):
+            calls.append(args)
+            return 0
+
+    monkeypatch.setattr(EW, "_lib", Spy)
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(GM, "launches", dict.fromkeys(GM.launches, 0))
+    q, x, pad = torch.zeros(5, 16), torch.zeros(256, 16), torch.zeros(256)
+    out = EW._launch(epilogue, form, q, x, pad, p)
+    assert out.shape == ((5, 2) if epilogue == "groupmin" else (5, 256))
+    (args,) = calls
+    kform, got_power, groupmin, qp, xp, pp, op, nq, n, d, pf, inv_p, sqrt_post, stream = args
+    assert (kform, got_power, groupmin) == (EW.FORMS[form][0], power, int(epilogue == "groupmin"))
+    assert (qp, xp, pp, op) == (q.data_ptr(), x.data_ptr(), pad.data_ptr(), out.data_ptr())
+    assert (nq, n, d, sqrt_post, stream) == (5, 256, 16, int(form == "jsmetr"), 77)
+    assert (pf, inv_p) == ((p, 1.0 / p) if form == "lp" else (0.0, 0.0))
+    assert GM.launches == {k: int(k == EW.launch_key(epilogue, form)) for k in GM.launches}
+
+
+def test_bound_follows_p():
+    """chip_smoke's least work an element pair: lp at an integer p a product chain (p=3: a
+    subtraction, a product and the FFMA into the sum, no MUFU), at any other p two MUFU; its
+    bounds at 2048 x 65,536 x 128 and at the 1M jsdivfast cell's pass 1."""
+    import chip_smoke as CS
+
+    assert [CS._ew_min_ops("lp", p) for p in (3.0, 4.0, 5.0, 7.0, 0.7, 2.5)] == [
+        (3, 0), (3, 0), (4, 0), (5, 0), (3, 2), (3, 2)]
+    assert CS._ew_min_ops("js") == (3, 1) and CS._ew_min_ops("l1") == (2, 0)
+    for form, p, shape, want in (("lp", 3.0, (2048, 65536), 1.539), ("lp", 0.7, (2048, 65536), 8.205),
+                                 ("js", None, (2048, 65536), 4.103), ("js", None, (256, 1_007_616), 7.885),
+                                 ("l1", None, (2048, 65536), 1.026)):
+        ms, by = CS._ew_bound_ms(form, *shape, 128, "groupmin", p)
+        assert by == "operations" and ms == pytest.approx(want, abs=1e-3), (form, p, ms)
+
+
+@pytest.mark.parametrize("mangled,key", [
+    ("_ZN12_GLOBAL__N_127groupmin_elementwise_kernelILi0ELb1EEEvPKfS2_S2_Pfllifffil", ("0", None, "1")),
+    ("_ZN12_GLOBAL__N_127groupmin_elementwise_kernelILi2ELi3ELb0EEEvPKfS2_S2_Pfllifffil", ("2", "3", "0")),
+])
+def test_turns_tool_matches_both_template_signatures(mangled, key):
+    """tools/elementwise_turns.py pairs the instances of two builds by form, LP power and epilogue,
+    with or without the LP power among the template arguments."""
+    from tpu_knn_torch.tools import elementwise_turns as T
+
+    assert T._KERNEL.search(mangled).groups() == key

@@ -15,7 +15,7 @@
 //
 //   L1    f = |a - b|, sum                                     l1, dummy
 //   LINF  f = |a - b|, NaN-carrying max                        linf
-//   LP    f = |a - b|^p (powf), sum, post ^(1/p)               lp
+//   LP    f = |a - b|^p, sum, post powf(., 1/p)                lp
 //   JS    f = 0.5 (t(a) + t(b)), t(v) = v (log v - log m) where v > 0,
 //         else 0, m = 0.5 (a + b), every log of max(., 1e-38); sum; post
 //         none, or sqrt(max(., 0)) for the jsmetr names
@@ -26,35 +26,62 @@
 // (min_nan.cuh), as torch.amin / torch.amax / torch.clamp_min do; v > 0 is
 // false for a NaN v, as in torch.where.
 //
-// What bounds it on an H100: FP32 instruction issue, 132 SMs x 128 lanes a
-// clock. L1 and LINF take two instructions an element pair (a subtraction
-// whose abs is a free operand modifier, then the add or the max); JS one
-// accurate logf of m and ~15 more; LP one powf. Every corpus element read
-// from device memory feeds BQ >= 64 pairs, far above the card's balance
-// point, so bytes never bound it.
+// How each form takes its pair (f32 throughout):
+//
+//   LP, p one of LP_POWERS (an instance each): a product chain with its last
+//     product fused into the sum, t = |a - b|: p=3 fmaf(t * t, t, acc), p=4
+//     fmaf(t2, t2, acc), ... (NMSLIB's generic Lp does the same).
+//   LP, any other p: ex2(p lg2 t) on the special-function unit (MUFU), the
+//     non-FTZ PTX forms: a subnormal t keeps its power; t = 0 gives lg2 =
+//     -inf and ex2 = 0, +inf stays +inf, NaN stays NaN.
+//   JS, in log2 units: La = lg2(2 max(a, 1e-38)) per staged element, then a
+//     pair takes one MUFU lg2, L = lg2(max(a + b, 2e-38)) = lg2(2 max(m,
+//     1e-38)), and adds a (La - L) + b (Lb - L); the post multiplies by 0.5
+//     ln 2. La and L are the same function of the same value when a == b, so
+//     a row against itself sums exact zeros, as the plain version does. A
+//     stage whose tiles hold a negative or NaN value takes the pair with the
+//     plain version's selects (v > 0 ? v (Lv - L) : 0): there 0 * (Lv - L)
+//     would turn a NaN or infinite L into NaN where the plain term is 0. The
+//     stage's flag is one block-wide OR at the barrier that ends its staging.
+//     The sum in log2 units is 1 / (0.5 ln 2) = 2.885 times the plain
+//     version's: a divergence past FLT_MAX / 2.885 (~1.2e38) overflows to
+//     +inf here where the plain sum may stay finite.
+//
+// What bounds it on an H100: instruction issue, 132 SMs x 4 schedulers a
+// clock (128 FP32 lanes), and the MUFU's 16 results a clock an SM, an eighth
+// of that. L1 and LINF take two FP32 instructions an element pair (a
+// subtraction whose abs is a free operand modifier, then the add or the
+// max), LP p=3 and p=4 three, JS ~6 and one MUFU (MUFU-bound: one MUFU
+// costs the time of 8 FP32 instructions), LP at other p ~9 and two MUFU.
+// Every corpus element read from device memory feeds BQ >= 64 pairs, far
+// above the card's balance point, so bytes never bound it.
 //
 // Design (csrc/groupmin.cu's skeleton): each block owns BQ queries x 128
 // rows (one group) and walks D in steps of 8 through double-buffered shared
 // memory, the next step's tiles loaded while this one computes. Each thread
-// keeps a TQ x TR register tile of accumulators: 8 x 8 for L1 and LINF
-// (BQ = 128), 8 x 4 for LP and JS (BQ = 64), whose inlined powf / logf take
-// registers and code: 64 of them in a loop body would not fit the
-// instruction cache. JS's row logs, log a and log b, are taken once, when a
-// tile is staged into shared memory, not once a pair. Blocks are ordered
+// keeps a TQ x TR register tile of accumulators: 8 x 8 (BQ = 128), two k
+// steps a pass of the inner loop for the forms of two to five instructions
+// a pair, one for LP's MUFU route; 8 x 4 (BQ = 64) for JS, whose a, La, b
+// and Lb at 8 x 8 took the 128 registers of two blocks an SM and spilled.
+// JS's row logs, La and Lb, are taken once, when a tile is staged into
+// shared memory, not once a pair. Blocks are ordered
 // query-tile fastest, so the query tiles that read one corpus group run
 // together and the group comes from HBM once. The group-min epilogue takes
 // each thread's min over its TR rows, then a shuffle min across the TX
 // threads that share its queries.
 //
 // Built without fast math: 1e-38 is subnormal in f32, and flush-to-zero
-// would turn the clamp into 0 and its log into -inf.
+// would turn the clamp into 0 and its log into -inf; LP's t may be
+// subnormal. JS's lg2 takes the FTZ form: its inputs are clamped at 2e-38,
+// which is normal, so it never sees a subnormal.
 //
 // Contract (checked by the Python wrapper, tpu_knn_torch/ops/elementwise.py):
 // contiguous f32 tensors on one device, 16-byte aligned, D % 8 == 0 (zero
-// columns change no distance of the four forms), p > 0 for LP, N % 128 == 0
-// for the group-min epilogue. Q and, for the distance epilogue, N may be
-// ragged: rows past them load zeros and are not written. Offsets are 64-bit:
-// Q * N passes 2^31.
+// columns change no distance of the four forms), p > 0 for LP (and p equal
+// to the instance's power for a product chain), N % 128 == 0 for the
+// group-min epilogue. Q and, for the distance epilogue, N may be ragged:
+// rows past them load zeros and are not written. Offsets are 64-bit: Q * N
+// passes 2^31.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,34 +97,99 @@ constexpr int BN = 128;  // corpus rows per block: one group
 constexpr int BK = 8;    // depth of one shared-memory stage
 constexpr int NT = 256;  // threads per block
 constexpr float JS_TINY = 1e-38f;
+constexpr float JS_TINY2 = 2.f * JS_TINY;  // 2e-38, normal in f32
+constexpr float JS_POST = 0.34657359f;     // 0.5 ln 2: the sums are in log2 units
+constexpr float HALF_MAX = 0x1.fffffep126f;  // FLT_MAX / 2: 2v overflows past it
 
-template <int F>
+// LP's integer powers with an instance of their own (a product chain); every
+// other p takes the MUFU route, power 0. ops/elementwise.py LP_POWERS.
+#define TK_LP_POWERS(X) X(3) X(4) X(5) X(6) X(7) X(8)
+
+// F: the form; P: LP's integer power, or 0 (LP at any other p, and the
+// other forms)
+template <int F, int P>
 struct Geo {
-  static constexpr bool WIDE = F == L1 || F == LINF;
-  static constexpr int TQ = 8;             // queries a thread
-  static constexpr int TR = WIDE ? 8 : 4;  // rows a thread
-  static constexpr int KU = WIDE ? 2 : 1;  // k steps in one pass of the inner loop
-  static constexpr int TX = BN / TR;       // threads along the rows: 16 or 32
-  static constexpr int TY = NT / TX;       // threads along the queries: 16 or 8
-  static constexpr int BQ = TY * TQ;       // queries a block: 128 or 64
+  static constexpr bool MUFU = F == JS || (F == LP && P == 0);
+  static constexpr int TQ = 8;                // queries a thread
+  static constexpr int TR = F == JS ? 4 : 8;  // rows a thread
+  static constexpr int KU = MUFU ? 1 : 2;     // k steps in one pass of the inner loop
+  static constexpr int TX = BN / TR;          // threads along the rows: 16 or 32
+  static constexpr int TY = NT / TX;          // threads along the queries: 16 or 8
+  static constexpr int BQ = TY * TQ;          // queries a block: 128 or 64
   static constexpr bool LOGS = F == JS;
 };
 
-__device__ __forceinline__ float js_log(float v) { return logf(max_nan(v, JS_TINY)); }
+// MUFU lg2 and ex2. The non-FTZ forms keep subnormal inputs and results
+// (ptxas scales them around the MUFU operation); the FTZ lg2 is the bare
+// MUFU operation, for inputs that are never subnormal.
+__device__ __forceinline__ float lg2_approx(float v) {
+  float r;
+  asm("lg2.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float lg2_approx_ftz(float v) {
+  float r;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ float ex2_approx(float v) {
+  float r;
+  asm("ex2.approx.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
 
-template <int F>
+// JS's pair log, L = lg2(max(s, 2e-38)) for s = a + b: lg2 of twice m =
+// 0.5 (a + b) clamped at 1e-38, NaN kept (a NaN s is a NaN L)
+__device__ __forceinline__ float js_lg2(float s) { return lg2_approx_ftz(max_nan(s, JS_TINY2)); }
+
+// JS's staged log of one element, La = lg2(2 max(a, 1e-38)): js_lg2 of a + a,
+// so that La - L is 0 exactly for a pair of equal elements; past FLT_MAX / 2,
+// where 2a overflows, lg2(a) + 1
+__device__ __forceinline__ float js_row_lg2(float v) {
+  return v > HALF_MAX ? lg2_approx_ftz(v) + 1.f : js_lg2(2.f * v);
+}
+
+// t^N for N >= 1 by squaring
+template <int N>
+__device__ __forceinline__ float ipow(float t) {
+  if constexpr (N == 1) {
+    return t;
+  } else if constexpr (N % 2 == 0) {
+    const float h = ipow<N / 2>(t);
+    return h * h;
+  } else {
+    return ipow<N - 1>(t) * t;
+  }
+}
+
+// SIGNED: JS on a stage whose tiles hold a negative or NaN value
+template <int F, int P, bool SIGNED>
 __device__ __forceinline__ void accumulate(float& acc, float a, float la, float b, float lb, float p) {
   if constexpr (F == L1) {
     acc = acc + fabsf(a - b);
   } else if constexpr (F == LINF) {
     acc = max_nan(acc, fabsf(a - b));
+  } else if constexpr (F == LP && P > 0) {
+    // t^P, its last product fused into the sum
+    const float t = fabsf(a - b);
+    if constexpr (P % 2 == 0) {
+      const float h = ipow<P / 2>(t);
+      acc = fmaf(h, h, acc);
+    } else {
+      acc = fmaf(ipow<P - 1>(t), t, acc);
+    }
   } else if constexpr (F == LP) {
-    acc = acc + powf(fabsf(a - b), p);
+    acc = acc + ex2_approx(p * lg2_approx(fabsf(a - b)));
+  } else if constexpr (!SIGNED) {
+    // a, b >= 0 and no NaN: a (La - L) is the plain version's term, 0 at a = 0
+    const float l = js_lg2(a + b);
+    acc = fmaf(a, la - l, acc);
+    acc = fmaf(b, lb - l, acc);
   } else {
-    const float lm = js_log((a + b) * 0.5f);
-    const float ta = a > 0.f ? a * (la - lm) : 0.f;
-    const float tb = b > 0.f ? b * (lb - lm) : 0.f;
-    acc = acc + 0.5f * (ta + tb);
+    const float l = js_lg2(a + b);
+    const float ta = a > 0.f ? a * (la - l) : 0.f;
+    const float tb = b > 0.f ? b * (lb - l) : 0.f;
+    acc = acc + (ta + tb);
   }
 }
 
@@ -106,26 +198,63 @@ __device__ __forceinline__ float post(float s, float inv_p, int sqrt_post) {
   if constexpr (F == LP) {
     return powf(s, inv_p);
   } else if constexpr (F == JS) {
-    return sqrt_post ? sqrtf(max_nan(s, 0.f)) : s;
+    const float d = JS_POST * s;
+    return sqrt_post ? sqrtf(max_nan(d, 0.f)) : d;
   } else {
     return s;
   }
 }
 
-template <int F, bool GROUPMIN>
+// JS's products of one stage into acc: at each of the stage's BK k steps,
+// the thread's TQ queries (a, La) against its TR rows (b, Lb); SIGNED: the
+// guarded pairs. The other forms keep this loop inline in the kernel: as a
+// function or a lambda, even always inlined, it made ptxas spill 16 bytes in
+// L1's and LINF's group-min instances.
+template <bool SIGNED, int BQ>
+__device__ __forceinline__ void js_stage(float (&acc)[Geo<JS, 0>::TQ][Geo<JS, 0>::TR], float (*qs)[BQ],
+                                         float (*xs)[BN], float (*ql)[BQ], float (*xl)[BN], int tx, int ty) {
+  constexpr int TQ = Geo<JS, 0>::TQ, TR = Geo<JS, 0>::TR;
+  static_assert(Geo<JS, 0>::KU == 1, "js_stage takes one k step a pass");
+#pragma unroll 1
+  for (int kk = 0; kk < BK; ++kk) {
+    float a[TQ], la[TQ], b[TR], lb[TR];
+#pragma unroll
+    for (int c = 0; c < TQ / 4; ++c) {
+      const int o = c * (BQ / (TQ / 4)) + ty * 4;
+      const float4 t = *reinterpret_cast<const float4*>(&qs[kk][o]);
+      const float4 u = *reinterpret_cast<const float4*>(&ql[kk][o]);
+      a[4 * c] = t.x, a[4 * c + 1] = t.y, a[4 * c + 2] = t.z, a[4 * c + 3] = t.w;
+      la[4 * c] = u.x, la[4 * c + 1] = u.y, la[4 * c + 2] = u.z, la[4 * c + 3] = u.w;
+    }
+#pragma unroll
+    for (int c = 0; c < TR / 4; ++c) {
+      const int o = c * (BN / (TR / 4)) + tx * 4;
+      const float4 t = *reinterpret_cast<const float4*>(&xs[kk][o]);
+      const float4 u = *reinterpret_cast<const float4*>(&xl[kk][o]);
+      b[4 * c] = t.x, b[4 * c + 1] = t.y, b[4 * c + 2] = t.z, b[4 * c + 3] = t.w;
+      lb[4 * c] = u.x, lb[4 * c + 1] = u.y, lb[4 * c + 2] = u.z, lb[4 * c + 3] = u.w;
+    }
+#pragma unroll
+    for (int i = 0; i < TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < TR; ++j) accumulate<JS, 0, SIGNED>(acc[i][j], a[i], la[i], b[j], lb[j], 0.f);
+  }
+}
+
+template <int F, int P, bool GROUPMIN>
 __global__ void __launch_bounds__(NT, 2)
 groupmin_elementwise_kernel(const float* __restrict__ q, const float* __restrict__ x,
                             const float* __restrict__ pad, float* __restrict__ out, int64_t nq,
                             int64_t n, int d, float p, float inv_p, int sqrt_post, int64_t q_tiles) {
-  using G = Geo<F>;
+  using G = Geo<F, P>;
   constexpr int BQ = G::BQ, TQ = G::TQ, TR = G::TR, TX = G::TX;
   constexpr int LQ = G::LOGS ? BQ : 4, LN = G::LOGS ? BN : 4;
   // [stage][k][query or row]: a thread's 4 neighbouring queries (rows) at
   // one k are one 16-byte shared load
   __shared__ __align__(16) float qs[2][BK][BQ];
   __shared__ __align__(16) float xs[2][BK][BN];
-  __shared__ __align__(16) float ql[2][BK][LQ];  // JS: log max(q, 1e-38)
-  __shared__ __align__(16) float xl[2][BK][LN];  // JS: log max(x, 1e-38)
+  __shared__ __align__(16) float ql[2][BK][LQ];  // JS: js_row_lg2(q)
+  __shared__ __align__(16) float xl[2][BK][LN];  // JS: js_row_lg2(x)
 
   const int64_t bid = blockIdx.x;
   const int64_t q0 = (bid % q_tiles) * BQ;
@@ -166,7 +295,10 @@ groupmin_elementwise_kernel(const float* __restrict__ q, const float* __restrict
     for (int l = 0; l < LOADS; ++l)
       v[l] = live[l] ? __ldg(reinterpret_cast<const float4*>(src[l] + k0)) : make_float4(0.f, 0.f, 0.f, 0.f);
   };
+  int signed_vals = 0;  // JS: this thread staged a negative or NaN value
+  // stores the fetched tiles in stage buf; JS: their logs too, and the flag
   auto stage = [&](int buf) {
+    if constexpr (G::LOGS) signed_vals = 0;
 #pragma unroll
     for (int l = 0; l < LOADS; ++l) {
       if (!has[l]) continue;
@@ -176,7 +308,10 @@ groupmin_elementwise_kernel(const float* __restrict__ q, const float* __restrict
       for (int c = 0; c < 4; ++c) dst[l][off + c * stride[l]] = e[c];
       if constexpr (G::LOGS) {
 #pragma unroll
-        for (int c = 0; c < 4; ++c) ldst[l][off + c * stride[l]] = js_log(e[c]);
+        for (int c = 0; c < 4; ++c) {
+          ldst[l][off + c * stride[l]] = js_row_lg2(e[c]);
+          signed_vals |= !(e[c] >= 0.f);
+        }
       }
     }
   };
@@ -187,50 +322,61 @@ groupmin_elementwise_kernel(const float* __restrict__ q, const float* __restrict
 #pragma unroll
     for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
 
+  // JS: the stage's tiles hold a negative or NaN value, the block-wide OR
+  // taken at the barrier that ends its staging
+  int signed_tile = 0;
   fetch(0);
   stage(0);
-  __syncthreads();
+  if constexpr (G::LOGS) {
+    signed_tile = __syncthreads_or(signed_vals);
+  } else {
+    __syncthreads();
+  }
 
   int buf = 0;
   for (int k0 = 0; k0 < d; k0 += BK) {
     const bool more = k0 + BK < d;
     if (more) fetch(k0 + BK);  // the next stage's loads fly while this one computes
+    if constexpr (G::LOGS) {
+      if (signed_tile) {
+        js_stage<true>(acc, qs[buf], xs[buf], ql[buf], xl[buf], tx, ty);
+      } else {
+        js_stage<false>(acc, qs[buf], xs[buf], ql[buf], xl[buf], tx, ty);
+      }
+    } else {
 #pragma unroll 1
-    for (int kb = 0; kb < BK; kb += G::KU) {
+      for (int kb = 0; kb < BK; kb += G::KU) {
 #pragma unroll
-      for (int ku = 0; ku < G::KU; ++ku) {
-        const int kk = kb + ku;
-        float a[TQ], la[TQ] = {}, b[TR], lb[TR] = {};  // la, lb: JS only
+        for (int ku = 0; ku < G::KU; ++ku) {
+          const int kk = kb + ku;
+          float a[TQ], la[TQ] = {}, b[TR], lb[TR] = {};  // la, lb: JS's (js_stage)
 #pragma unroll
-        for (int c = 0; c < TQ / 4; ++c) {
-          const int o = c * (BQ / (TQ / 4)) + ty * 4;
-          const float4 t = *reinterpret_cast<const float4*>(&qs[buf][kk][o]);
-          a[4 * c] = t.x, a[4 * c + 1] = t.y, a[4 * c + 2] = t.z, a[4 * c + 3] = t.w;
-          if constexpr (G::LOGS) {
-            const float4 u = *reinterpret_cast<const float4*>(&ql[buf][kk][o]);
-            la[4 * c] = u.x, la[4 * c + 1] = u.y, la[4 * c + 2] = u.z, la[4 * c + 3] = u.w;
+          for (int c = 0; c < TQ / 4; ++c) {
+            const int o = c * (BQ / (TQ / 4)) + ty * 4;
+            const float4 t = *reinterpret_cast<const float4*>(&qs[buf][kk][o]);
+            a[4 * c] = t.x, a[4 * c + 1] = t.y, a[4 * c + 2] = t.z, a[4 * c + 3] = t.w;
           }
-        }
 #pragma unroll
-        for (int c = 0; c < TR / 4; ++c) {
-          const int o = c * (BN / (TR / 4)) + tx * 4;
-          const float4 t = *reinterpret_cast<const float4*>(&xs[buf][kk][o]);
-          b[4 * c] = t.x, b[4 * c + 1] = t.y, b[4 * c + 2] = t.z, b[4 * c + 3] = t.w;
-          if constexpr (G::LOGS) {
-            const float4 u = *reinterpret_cast<const float4*>(&xl[buf][kk][o]);
-            lb[4 * c] = u.x, lb[4 * c + 1] = u.y, lb[4 * c + 2] = u.z, lb[4 * c + 3] = u.w;
+          for (int c = 0; c < TR / 4; ++c) {
+            const int o = c * (BN / (TR / 4)) + tx * 4;
+            const float4 t = *reinterpret_cast<const float4*>(&xs[buf][kk][o]);
+            b[4 * c] = t.x, b[4 * c + 1] = t.y, b[4 * c + 2] = t.z, b[4 * c + 3] = t.w;
           }
+#pragma unroll
+          for (int i = 0; i < TQ; ++i)
+#pragma unroll
+            for (int j = 0; j < TR; ++j) accumulate<F, P, false>(acc[i][j], a[i], la[i], b[j], lb[j], p);
         }
-#pragma unroll
-        for (int i = 0; i < TQ; ++i)
-#pragma unroll
-          for (int j = 0; j < TR; ++j) accumulate<F>(acc[i][j], a[i], la[i], b[j], lb[j], p);
       }
     }
     if (more) {
       // the other stage was last read before the previous barrier
       stage(buf ^ 1);
-      __syncthreads();
+      if constexpr (G::LOGS) {
+        signed_tile = __syncthreads_or(signed_vals);
+      } else {
+        __syncthreads();
+      }
       buf ^= 1;
     }
   }
@@ -272,62 +418,85 @@ groupmin_elementwise_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-template <int F, bool GROUPMIN>
+template <int F, int P, bool GROUPMIN>
 int launch(const void* q, const void* x, const void* pad, void* out, int64_t nq, int64_t n, int d,
            float p, float inv_p, int sqrt_post, cudaStream_t stream) {
-  const int64_t q_tiles = (nq + Geo<F>::BQ - 1) / Geo<F>::BQ;
+  const int64_t q_tiles = (nq + Geo<F, P>::BQ - 1) / Geo<F, P>::BQ;
   const int64_t blocks = q_tiles * ((n + BN - 1) / BN);
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  groupmin_elementwise_kernel<F, GROUPMIN><<<(unsigned)blocks, NT, 0, stream>>>(
+  groupmin_elementwise_kernel<F, P, GROUPMIN><<<(unsigned)blocks, NT, 0, stream>>>(
       (const float*)q, (const float*)x, (const float*)pad, (float*)out, nq, n, d, p, inv_p, sqrt_post,
       q_tiles);
   return (int)cudaGetLastError();
 }
 
-template <int F>
+template <int F, int P>
 int launch_form(int groupmin, const void* q, const void* x, const void* pad, void* out, int64_t nq,
                 int64_t n, int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
-  return groupmin ? launch<F, true>(q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, stream)
-                  : launch<F, false>(q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, stream);
+  return groupmin ? launch<F, P, true>(q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, stream)
+                  : launch<F, P, false>(q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, stream);
+}
+
+template <int F, int P>
+int put_geometry(int* out) {
+  using G = Geo<F, P>;
+  out[0] = G::TQ, out[1] = G::TR, out[2] = G::KU, out[3] = G::BQ;
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// form: 0 L1, 1 LINF, 2 LP, 3 JS; groupmin: 1 for the group mins f32[Q, N/128],
-// 0 for the distances f32[Q, N]; inv_p: 1/p as the caller rounds it (LP);
-// sqrt_post: JS's metric post. Launches on `stream` and returns
-// cudaGetLastError(): a launch the card refuses never runs, and only this
-// code reports it.
-int tk_elementwise(int form, int groupmin, const void* q, const void* x, const void* pad, void* out,
-                   long long nq, long long n, int d, float p, float inv_p, int sqrt_post, void* stream) {
+// form: 0 L1, 1 LINF, 2 LP, 3 JS; lp_power: LP's integer power with an
+// instance of its own (TK_LP_POWERS; p must equal it), or 0 for LP at any p
+// by ex2(p lg2 t) and for the other forms; groupmin: 1 for the group mins
+// f32[Q, N/128], 0 for the distances f32[Q, N]; inv_p: 1/p as the caller
+// rounds it (LP); sqrt_post: JS's metric post. Launches on `stream` and
+// returns cudaGetLastError(): a launch the card refuses never runs, and only
+// this code reports it.
+int tk_elementwise(int form, int lp_power, int groupmin, const void* q, const void* x, const void* pad,
+                   void* out, long long nq, long long n, int d, float p, float inv_p, int sqrt_post,
+                   void* stream) {
   if (nq <= 0 || n <= 0) return (int)cudaSuccess;
   if (d <= 0 || d % BK != 0 || (groupmin && n % BN != 0)) return (int)cudaErrorInvalidValue;
+  if (lp_power != 0 && (form != LP || p != (float)lp_power)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (form) {
-    case L1: return launch_form<L1>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
-    case LINF: return launch_form<LINF>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
+    case L1: return launch_form<L1, 0>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
+    case LINF: return launch_form<LINF, 0>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
     case LP:
       if (!(p > 0.f)) return (int)cudaErrorInvalidValue;
-      return launch_form<LP>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
-    case JS: return launch_form<JS>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
+      switch (lp_power) {
+        case 0: return launch_form<LP, 0>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
+#define TK_LP_CASE(P) \
+  case P: return launch_form<LP, P>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
+        TK_LP_POWERS(TK_LP_CASE)
+#undef TK_LP_CASE
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case JS: return launch_form<JS, 0>(groupmin, q, x, pad, out, nq, n, d, p, inv_p, sqrt_post, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
-// The tiling of a form, for counting its instructions an element pair:
+// The tiling of an instance, for counting its instructions an element pair:
 // out = {TQ, TR, KU (k steps in one pass of the inner loop), BQ}.
-int tk_elementwise_geometry(int form, int* out) {
-  auto put = [out](int tq, int tr, int ku, int bq) {
-    out[0] = tq, out[1] = tr, out[2] = ku, out[3] = bq;
-    return 0;
-  };
+int tk_elementwise_geometry(int form, int lp_power, int* out) {
+  if (lp_power != 0 && form != LP) return (int)cudaErrorInvalidValue;
   switch (form) {
-    case L1: return put(Geo<L1>::TQ, Geo<L1>::TR, Geo<L1>::KU, Geo<L1>::BQ);
-    case LINF: return put(Geo<LINF>::TQ, Geo<LINF>::TR, Geo<LINF>::KU, Geo<LINF>::BQ);
-    case LP: return put(Geo<LP>::TQ, Geo<LP>::TR, Geo<LP>::KU, Geo<LP>::BQ);
-    case JS: return put(Geo<JS>::TQ, Geo<JS>::TR, Geo<JS>::KU, Geo<JS>::BQ);
+    case L1: return put_geometry<L1, 0>(out);
+    case LINF: return put_geometry<LINF, 0>(out);
+    case LP:
+      switch (lp_power) {
+        case 0: return put_geometry<LP, 0>(out);
+#define TK_LP_CASE(P) \
+  case P: return put_geometry<LP, P>(out);
+        TK_LP_POWERS(TK_LP_CASE)
+#undef TK_LP_CASE
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case JS: return put_geometry<JS, 0>(out);
     default: return (int)cudaErrorInvalidValue;
   }
 }

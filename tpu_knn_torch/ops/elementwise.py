@@ -23,8 +23,11 @@ held against on the card:
 Both epilogues add ``pad`` (0, or 1e30 on padding rows) to each distance:
 :func:`elementwise_groupmin` returns the group mins f32[Q, N/128] (pass 1,
 one launch over the whole corpus), :func:`elementwise_dists` the
-distances f32[Q, N] (one launch a corpus slice). The source is built with
-the group-min kernels (ops/groupmin.py ``SOURCES``, ``build_all``).
+distances f32[Q, N] (one launch a corpus slice). ``lp`` at a ``p`` of
+:data:`LP_POWERS` runs an instance of its own, a product chain; at any
+other ``p`` it runs ex2(p lg2 |a - b|) on the card's special-function unit
+(:func:`lp_power` picks). The source is built with the group-min kernels
+(ops/groupmin.py ``SOURCES``, ``build_all``).
 """
 
 from __future__ import annotations
@@ -46,7 +49,24 @@ FORMS = {"l1": (0, False), "linf": (1, False), "lp": (2, False), "js": (3, False
 #: D multiple the kernel takes: the caller appends zero columns up to it
 #: (the dense spaces pad D to 128)
 D_MULTIPLE = 8
+#: LP's integer powers with a kernel instance of their own, a product chain
+#: (csrc's ``TK_LP_POWERS``); every other p takes the MUFU route
+LP_POWERS = (3, 4, 5, 6, 7, 8)
 
+
+def lp_power(p: float | None) -> int:
+    """The kernel's route for ``lp`` at ``p``: the integer power of its
+    product chain (one of :data:`LP_POWERS`), or 0 for ex2(p lg2 |a - b|)
+    (and for no ``p``)."""
+    return int(p) if p is not None and float(p) in LP_POWERS else 0
+
+
+def instance(form: str, p: float | None = None) -> str:
+    """The name of the kernel instance that runs ``form`` (at ``p``):
+    its kernel form, with the power of an LP product chain ("lp3")."""
+    kf = kernel_form(form)
+    power = lp_power(p) if kf == "lp" else 0
+    return f"{kf}{power}" if power else kf
 
 
 def kernel_form(form: str) -> str:
@@ -113,21 +133,23 @@ def _lib():
     """The kernel's library (built by ops/groupmin.py), its entries typed."""
     lib = GM._load(LIB)
     vp, i64 = ctypes.c_void_p, ctypes.c_longlong
-    lib.tk_elementwise.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64, i64, ctypes.c_int,
-                                   ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.tk_elementwise.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64, i64,
+                                   ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
     lib.tk_elementwise.restype = ctypes.c_int
-    lib.tk_elementwise_geometry.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.tk_elementwise_geometry.argtypes = [ctypes.c_int, ctypes.c_int, ip]
     lib.tk_elementwise_geometry.restype = ctypes.c_int
     return lib
 
 
-def geometry(form: str) -> dict:
-    """The kernel's tiling of ``form`` on the card: queries and rows a
-    thread, k steps in one pass of the inner loop, queries a block."""
+def geometry(form: str, p: float | None = None) -> dict:
+    """The kernel's tiling of ``form`` (at ``p``) on the card: queries and
+    rows a thread, k steps in one pass of the inner loop, queries a block."""
     out = (ctypes.c_int * 4)()
-    err = _lib().tk_elementwise_geometry(FORMS[form][0], out)
+    power = lp_power(p) if kernel_form(form) == "lp" else 0
+    err = _lib().tk_elementwise_geometry(FORMS[form][0], power, out)
     if err != 0:
-        raise RuntimeError(f"groupmin_elementwise: no geometry for form {form!r} ({err})")
+        raise RuntimeError(f"groupmin_elementwise: no geometry for form {form!r} at p={p!r} ({err})")
     return dict(zip(("tq", "tr", "ku", "bq"), out))
 
 
@@ -153,8 +175,9 @@ def _launch(epilogue: str, form: str, q, x, pad, p) -> torch.Tensor:
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tk_elementwise(kform, int(epilogue == "groupmin"), q.data_ptr(), x.data_ptr(), pad.data_ptr(),
-                                 out.data_ptr(), qn, n, d, pf, 1.0 / pf if pf else 0.0, int(sqrt_post), stream)
+        err = lib.tk_elementwise(kform, lp_power(pf), int(epilogue == "groupmin"), q.data_ptr(), x.data_ptr(),
+                                 pad.data_ptr(), out.data_ptr(), qn, n, d, pf, 1.0 / pf if pf else 0.0,
+                                 int(sqrt_post), stream)
     if err != 0:
         msg = lib.tk_error_string(err).decode()
         raise RuntimeError(f"groupmin_elementwise {epilogue} {form} kernel launch failed: {msg} ({err})")
