@@ -105,8 +105,8 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     search; identical results with a sync every 8 iterations; range_query
     raises; save and Index.load(device="cuda") give identical answers;
     replicateNeighbors=1 (bf16 and int8) within 0.01 of the plain recall,
-    distances exact, the store counted by memory_usage_bytes; at 20,000 x
-    128 two builds from one seed give equal graphs and results, a reversed
+    distances exact, the store counted by memory_usage_bytes; at 10,000 x
+    128 (cut from 20,000) two builds from one seed give equal graphs and results, a reversed
     batch the reversed results, post=1 keeps check_graph zero; l2sqr_sift
     and angulardist over 20,000 rows (ramped head waves) return a
     self-query first and reach recall@10 >= 0.9 at efSearch=100. (The two
@@ -123,7 +123,7 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     no node unreached from the entry; recall@10 against phase 4's exact
     ids (held to the float64 oracle) and qps (warm, best of 3) at
     bench.py's efSearch set 10-14, 20, 50, recall >= 0.95 at 20, every
-    distance within rtol 5e-3 of its float64 value; then 20,000-row cells
+    distance within rtol 5e-3 of its float64 value; then 10,000-row cells (cut from 20,000)
     with buildAlgo="nndescent" below the threshold: the same seed twice
     (torch.equal on every level), l2sqr_sift on uint8 rows, cosinesimil on
     clustered rows, one build with nndRevMode="slots",
@@ -150,7 +150,16 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     beside the plain versions', torch.cdist's and their bounds (least
     FP32 and MUFU operations an element pair; the SASS's count beside),
     and an edge sweep with NaN, +-inf and zero rows, ragged Q and N, D
-    8..136, lp at p 0.5, 0.7 and 3-8, JS self pairs exactly 0; jsdivfast
+    8..136, lp at p 0.5, 0.7 and 3-8, JS self pairs exactly 0; its
+    batched epilogue (pass 2, the graph scorers, the heuristic's pairs)
+    against its plain version over an edge sweep (every form and LP
+    instance, Cq 1, 5, 40, ragged K, D 8..136, NaN, +-inf, zero and tiny
+    cells, +inf pads), the JS pair of two 2e38 cells finite in all three
+    epilogues, and at pass 2's shape (1024 queries x 1536 gathered rows)
+    for l1 and JS and a heuristic pair shape (1024 x 100 x 100) for l1,
+    with times beside the plain versions', batched torch.cdist's and the
+    bound; a guard that counts the plain versions' calls on CUDA tensors
+    in every index run of the phase and requires 0; jsdivfast
     and renyidiv_fast (alpha 0.75) over the 1M histograms at 256 queries;
     every dense name at 20,000 rows (two-pass) and 3,000 (single pass),
     256 queries each, lp at p=3 and at p=0.7 and abdiv at alpha 1.2, beta
@@ -162,9 +171,12 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     histograms (cut from 100,000; waves, M=16, efConstruction=200,
     waveSize=1024) with
     check_graph all zero, recall@10 and qps at efSearch 20, 100, 400,
-    1000, exact distances, and Index("l1") over 20,000 rows (the generic
-    pair scoring) with check_graph zero, self-queries first and recall@10
-    at efSearch=100 >= 0.9.
+    1000, exact distances, and Index("l1") over 20,000 rows (the batched
+    epilogue's pairs) with check_graph zero, self-queries first, recall@10
+    at efSearch=100 >= 0.9 and batched launches; l1 at 20,000 rows
+    through vptree, napp, sw-graph and an hnsw build asked for
+    NN-descent (which needs an affine form and builds by waves, as in
+    tpu_knn), each held to the two-pass scan's ids.
 18. sparse, the sparse spaces over seeded sparse_like bag-of-words rows:
     (a) bench.py's config 5: cosinesimil_sparse over 100,000 rows (vocab
     30,000, 64 terms a row), 512 queries at k=10; the exact scan (median
@@ -175,7 +187,7 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     efSearch 50 and 100 (recall >= 0.95 at 100), every distance its id's
     f64 distance, and save/load in each mode with results bit-identical;
     (c) the 1M exact scan (1,000,000 rows, vocab 60,000): median of 5, peak
-    memory, 64 queries against the f64 oracle; (d) at 10,000 rows every
+    memory, 64 queries against the f64 oracle; (d) at 5,000 rows every
     sparse name's kNN and range against its f64 oracle, HNSW by exact waves
     (sketchDim=0, moved here from 100,000 rows, its wave phases timed),
     with sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse
@@ -239,15 +251,15 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     100,000 seeded DNA-like strings (ACGT, lengths 24-40), 256 queries of
     1-4 seeded edits: seq_search ms a batch, the first 16 queries'
     distances equal to the native Levenshtein over every pair, the chunk
-    used; HNSW leven over 10,000 of them (M=16, efConstruction=100; cut
-    from 20,000), tie-aware recall@10 at efSearch=100 >= 0.9 against the
+    used; HNSW leven over 5,000 of them (M=16, efConstruction=100; cut
+    from 20,000, then 10,000), tie-aware recall@10 at efSearch=100 >= 0.9 against the
     scan.
 21. the CLI and the mesh layer (after 20 (a)-(d), before 19 (e)): (a)
     [cli] phase 4's 1,000,000 rows written as .fvecs, then
     tpu_knn_torch.cli.main in-process with --method seq_search --knn 10
     --maxNumQuery 2048 --testSetQty 1 --device cuda: recall 1,
     groupmin_f32 launched, the seconds end to end; hnsw (M=16,
-    efConstruction=200, efSearch 20 and 100) over 20,000 of the rows with
+    efConstruction=200, efSearch 20 and 100) over 10,000 of the rows with
     --queryFile and --saveIndex, then --loadIndex: equal tables; one
     subprocess ``python -m tpu_knn_torch`` (seq_search, recall 1); (b)
     [mesh] Index("l2", Params(dim=128), method="seq_search", mesh=4,
@@ -258,14 +270,14 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     turns with the single-device index, peak memory; range_query_batch at
     phase 9's radius with the single-device range's id sets; the two-tier
     merge on make_mesh2(2, 2) equal to the flat merge; (c) [mesh] the
-    default Index("l2", Params(dim=128), mesh=4) over the first 40,000 of
+    default Index("l2", Params(dim=128), mesh=4) over the first 20,000 of
     HNSW-100k's rows with its 2048 queries (cut from all 100,000 when the
-    whole script passed ~1,050 s; M=16, efConstruction=200,
+    whole script passed ~1,050 s, then from 40,000; M=16, efConstruction=200,
     waveSize=1024, stacked waves): build
     seconds and peak, check_graph zero on every shard, recall@10 against
     seq_search and qps (best of 3) at efSearch 20 and 100 (>= 0.95 and
     0.99), save/load bit-identical with mesh_devices 4 in the header; then
-    buildAlgo="nndescent" over 4 x 10,000 rows twice from one seed:
+    buildAlgo="nndescent" over 4 x 5,000 rows twice from one seed:
     check_graph zero, the graphs equal (torch.equal), recall@10 at
     efSearch=50. The mesh layer and the CLI are torch ops and host code,
     as they are XLA ops and host code in tpu_knn; the exact scan reaches
@@ -353,7 +365,8 @@ def _ptxas_summary(log: str) -> list[str]:
     template arguments in angle brackets."""
     out, name, spill = [], None, ""
     for ln in log.splitlines():
-        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel|split_queries_kernel|image_queries_kernel)(I\w*)?", ln)
+        m = re.search(r"entry function '.*?(groupmin_[a-z0-9]+_kernel|elementwise_batched_kernel|split_queries_kernel"
+                      r"|image_queries_kernel)(I\w*)?", ln)
         if m:
             args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
             name, spill = m.group(1) + (f"<{','.join(args)}>" if args else ""), ""
@@ -1293,7 +1306,7 @@ def _phase_hnsw(smi):
     sift_like rows, M=16, efConstruction=200, waveSize=1024; 2048 queries,
     k=10): build, check_graph, recall and qps against GoldStandard over
     efSearch, exact distances, range raises, save and load on the card, the
-    replicated neighbour stores, determinism at 20,000 rows, and l2sqr_sift
+    replicated neighbour stores, determinism at 10,000 rows, and l2sqr_sift
     and angulardist at 20,000 rows. Returns the numbers it printed."""
     import os
     import shutil
@@ -1450,8 +1463,9 @@ def _phase_hnsw(smi):
     del idx, m, gold, x_dev
     torch.cuda.empty_cache()
 
-    # determinism at 20,000 x 128: same seed, same graph, on the card
-    n2 = 20_000
+    # determinism at 10,000 x 128 (cut from 20,000: the whole script took 1292.7 s of command
+    # on a slow host, NVIDIA H100 80GB HBM3, 700 W): same seed, same graph, on the card
+    n2 = 10_000
     det_params = dict(M=8, efConstruction=60, waveSize=256, seed=11)
 
     def det_build(**kw):
@@ -1520,7 +1534,7 @@ def _phase_hnsw(smi):
 
 def _phase_nnd(smi, corpus, queries, i10):
     """The default index at SIFT-1M, built by NN-descent (bench.py's
-    Params1M, buildAlgo auto), and the 20,000-row side cells. Returns the
+    Params1M, buildAlgo auto), and the 10,000-row side cells. Returns the
     numbers it printed."""
     import torch
     from tpu_knn_torch import DataKind, DistKind, Index, Params
@@ -1588,8 +1602,9 @@ def _phase_nnd(smi, corpus, queries, i10):
     del idx, m, x_dev, q_dev
     torch.cuda.empty_cache()
 
-    # side cells at 20,000 rows, buildAlgo="nndescent" below the threshold
-    n2 = 20_000
+    # side cells at 10,000 rows (cut from 20,000: the whole script took 1292.7 s of command on a
+    # slow host, NVIDIA H100 80GB HBM3, 700 W), buildAlgo="nndescent" below the threshold
+    n2 = 10_000
     side = dict(M=16, efConstruction=100, buildAlgo="nndescent")
     cu8 = np.rint(corpus[:n2]).astype(np.uint8)
     ang = clustered(n2 + 256, 100, seed=1)
@@ -1859,7 +1874,19 @@ EW_RECORD = {
     "elementwise_dists_lp": ("elementwise_dists_lp", "lp single", "lp"),
     "elementwise_dists_lp_p0.7": ("elementwise_dists_lp", "lp p=0.7 single", "lp p=0.7"),
     "elementwise_dists_js": ("elementwise_dists_js", "jsdivfast single", "js"),
+    # the batched epilogue: pass 2 of the 1M cells, and the heuristic's pairs of the hnsw l1 cell
+    "elementwise_batched_l1": ("elementwise_batched_l1", "l1 1M", "l1 pass 2"),
+    "elementwise_batched_js": ("elementwise_batched_js", "jsdivfast 1M", "js pass 2"),
+    "elementwise_batched_l1_pairs": ("elementwise_batched_l1", "hnsw l1", "l1 pairs"),
 }
+#: the batched epilogue's timed checks: label -> (form, B, Cq, K, the rows (phase 4's "sift" or
+#: the "hist"ograms), torch.cdist's p or None). "pass 2": a 1M cell's re-score, 1024 queries a
+#: launch (seq_search._PASS2_QBLK) against the 1536 rows of their kg = 12 groups; "pairs": the
+#: construction heuristic's C x C2 = 100 x 100 pairs of a 1024-point wave
+EW_BATCHED = {"l1 pass 2": ("l1", 1024, 1, 1536, "sift", 1.0), "js pass 2": ("js", 1024, 1, 1536, "hist", None),
+              "l1 pairs": ("l1", 1024, 100, 100, "sift", 1.0)}
+#: tpu_knn's JS of a pair with one 2e38 cell on each side, in both packages' plain versions
+EW_JS_HUGE = 1.3863068e38
 #: opcode prefixes of SASS that is no arithmetic: loads, stores, barriers, branches, moves from
 #: special or constant registers
 _SASS_NOT_ARITH = ("LD", "ST", "BAR", "BRA", "NOP", "EXIT", "DEPBAR", "BSSY", "BSYNC", "WARPSYNC", "MEMBAR",
@@ -2004,16 +2031,29 @@ def _ew_min_ops(form: str, p=None) -> tuple:
     return EW_MIN_OPS[form]
 
 
-def _ew_bound_ms(form: str, qn: int, n: int, d: int, epilogue: str, p=None):
-    """(least ms, "bytes" or "operations") of one elementwise launch: q, x and pad read once and
-    the mins (or distances) written once over the HBM rate, against the form's least
-    operations at ``p`` (``_ew_min_ops``): every instruction an issue slot at the FP32 issue
-    rate, the MUFU operations at their own rate, whichever takes longer."""
+def _ew_least_ms(form: str, nbytes: int, pairs: int, p=None):
+    """(least ms, "bytes" or "operations") of ``nbytes`` moved over the HBM rate against
+    ``pairs`` element pairs of the form's least operations at ``p`` (``_ew_min_ops``): every
+    instruction an issue slot at the FP32 issue rate, the MUFU operations at their own rate,
+    whichever takes longer."""
     fp32, mufu = _ew_min_ops(form, p)
-    nbytes = 4 * (qn * d + n * d + n) + 4 * qn * (n // 128 if epilogue == "groupmin" else n)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = qn * n * d * max((fp32 + mufu) / FP32_INSTR_PER_S, mufu / MUFU_PER_S)
+    t_ops = pairs * max((fp32 + mufu) / FP32_INSTR_PER_S, mufu / MUFU_PER_S)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes > t_ops else "operations")
+
+
+def _ew_bound_ms(form: str, qn: int, n: int, d: int, epilogue: str, p=None):
+    """(least ms, "bytes" or "operations") of one group-min or distance launch: q, x and pad read
+    once and the mins (or distances) written once, against Q x N x D element pairs."""
+    nbytes = 4 * (qn * d + n * d + n) + 4 * qn * (n // 128 if epilogue == "groupmin" else n)
+    return _ew_least_ms(form, nbytes, qn * n * d, p)
+
+
+def _ew_batched_bound_ms(form: str, nb: int, cq: int, k: int, d: int, p=None):
+    """(least ms, "bytes" or "operations") of one batched launch: q [B, Cq, D], rows [B, K, D] and
+    pad [B, K] read once and the distances [B, Cq, K] written once, against B x Cq x K x D
+    element pairs (pass 2, Cq = 1: bytes; the heuristic's pairs: operations)."""
+    return _ew_least_ms(form, 4 * (nb * cq * d + nb * k * d + nb * k + nb * cq * k), nb * cq * k * d, p)
 
 
 def _ew_measure(smi, label, form, epi, q, x, pad, p, cdist_p, sass, err, lib_reps) -> dict:
@@ -2196,6 +2236,162 @@ def _ew_main_check(smi, label, idx, queries, cdist_p, sass) -> dict:
     return _ew_measure(smi, label, EW.kernel_form(form), "groupmin", q, x, pad, p, cdist_p, sass, err, 1)
 
 
+class _PlainGuard:
+    """Counts, while active, the calls on CUDA tensors of the elementwise kernel's plain arithmetic
+    (ops/elementwise.distances, which every plain version runs, and the ops/distance blocks it
+    takes): on the card every scorer of the thirteen elementwise names launches the kernel, so
+    an index run must count 0."""
+
+    def __enter__(self):
+        import torch
+        from tpu_knn_torch.ops import distance as D
+        from tpu_knn_torch.ops import elementwise as EW
+
+        self.count, self._saved = 0, []
+        for mod, fn in ((EW, "distances"), (D, "l1_blocked"), (D, "linf_blocked"), (D, "lp_blocked"),
+                        (D, "js_div_blocked")):
+            real = getattr(mod, fn)
+
+            def spy(*args, _real=real, **kw):
+                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                    self.count += 1
+                return _real(*args, **kw)
+
+            setattr(mod, fn, spy)
+            self._saved.append((mod, fn, real))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, fn, real in self._saved:
+            setattr(mod, fn, real)
+
+
+def _ew_batched_sweep() -> int:
+    """The batched epilogue against its plain version at small shapes: each form (lp at every p
+    of EW_SWEEP_P, JS with and without its sqrt post) at B = 3, Cq 1, 5 and 40 (two groups of 32
+    queries, the second ragged), K 1, 37 and 300, D 8, 20 (zero columns appended) and 136, over
+    histograms, signed normals and tiny cells (values in [1e-39, 4e-38) among zeros and signed
+    normals), with a zero row, a NaN, a +inf and a -inf cell in the rows, a +inf cell and a zero
+    row in the queries, and +inf and 1e30 pads. Returns the runs."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    dev = torch.device("cuda", 0)
+    rng = np.random.default_rng(16)
+    forms = (("l1", None), ("linf", None), *(("lp", p) for p in EW_SWEEP_P), ("js", None), ("jsmetr", None))
+    nb, runs = 3, 0
+    for d in (8, 20, 136):
+        for k in (1, 37, 300):
+            for cq in (1, 5, 40):
+                for kind in ("hist", "normal", "tiny"):
+                    n = nb * (cq + k)
+                    if kind == "hist":
+                        a = rng.dirichlet(np.full(d, 0.1), n)
+                    else:
+                        a = rng.standard_normal((n, d)) * 4
+                        if kind == "tiny":
+                            r = rng.random((n, d))
+                            a = np.where(r < 0.4, rng.uniform(1e-39, 4e-38, (n, d)), np.where(r < 0.6, 0.0, a))
+                    a = a.astype(np.float32)
+                    q, rows = a[:nb * cq].reshape(nb, cq, d).copy(), a[nb * cq:].reshape(nb, k, d).copy()
+                    rows[0, 0] = 0.0
+                    rows[1, -1, 0], rows[2, -1, 1 % d] = np.nan, np.inf
+                    rows[2, 0, 0] = -np.inf
+                    q[1, -1, 0] = np.inf
+                    q[2, 0] = 0.0
+                    pad = np.zeros((nb, k), np.float32)
+                    pad[0, -1], pad[1, 0] = np.inf, PAD_TERM
+                    qt, rt, pt = (torch.from_numpy(v).to(dev) for v in (q, rows, pad))
+                    zq, zr = (torch.nn.functional.pad(t, (0, -d % EW.D_MULTIPLE)).contiguous() for t in (qt, rt))
+                    for form, p in forms:
+                        got = EW.elementwise_batched(form, zq, zr, pt, p)
+                        _ew_compare(f"edge batched {form} p={p} B={nb} Cq={cq} K={k} D={d} {kind}", got,
+                                    EW.elementwise_batched_reference(form, qt, rt, pt, p), form == "linf")
+                        runs += 1
+    torch.cuda.synchronize()
+    return runs
+
+
+def _ew_js_huge() -> dict:
+    """The JS pair of two 2e38 cells, one on each side (q [2e38, 0, ...] against rows [0, 2e38,
+    ...]), in the group-min, distance and batched epilogues: EW_JS_HUGE (its sqrt for jsmetr)
+    within rtol 5e-3, finite, and as the plain version gives it. In whole log2 units the sum was
+    2e38 + 2e38 = +inf. Returns {"form epilogue": the kernel's value}."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    dev = torch.device("cuda", 0)
+    q = torch.zeros(1, 16, device=dev)
+    x = torch.zeros(128, 16, device=dev)
+    q[0, 0], x[:, 1] = 2e38, 2e38
+    pad = torch.zeros(128, device=dev)
+    out = {}
+    for form in ("js", "jsmetr"):
+        want = EW_JS_HUGE if form == "js" else float(np.sqrt(EW_JS_HUGE))
+        for epi, got, ref in (
+                ("groupmin", EW.elementwise_groupmin(form, q, x, pad), EW.elementwise_groupmin_reference(form, q, x, pad)),
+                ("dists", EW.elementwise_dists(form, q, x, pad), EW.elementwise_dists_reference(form, q, x, pad)),
+                ("batched", EW.elementwise_batched(form, q[None], x[None], pad[None]),
+                 EW.elementwise_batched_reference(form, q[None], x[None], pad[None]))):
+            _ew_compare(f"JS huge pair {form} {epi}", got, ref, False)
+            v = got.double().cpu().numpy()
+            _require(np.isfinite(v).all() and np.allclose(v, want, rtol=EW_RTOL, atol=0),
+                     lambda: f"JS huge pair {form} {epi}: {v.ravel()[:4]}, want {want:.7g}")
+            out[f"{form} {epi}"] = float(v.ravel()[0])
+    return out
+
+
+def _ew_batched_check(smi, x_sift, q_sift, x_hist, q_hist) -> dict:
+    """The batched epilogue at EW_BATCHED's shapes against its plain version (and, for JS, its
+    sqrt post too): the first B queries (pass 2) or rows drawn from seed 16 (pairs) as queries,
+    each batch item's rows its own whole 128-row groups (pass 2, as _pass2 gathers them) or rows
+    drawn from the seed, the last 64 of the last item +inf-padded; kernel, plain and batched
+    torch.cdist ms (CUDA events) beside the bound. Returns {label: numbers}."""
+    import torch
+    from tpu_knn_torch.ops import elementwise as EW
+
+    dev = x_sift.device
+    gen = torch.Generator(device=dev).manual_seed(16)
+    out = {}
+    for label, (form, nb, cq, k, src, cdist_p) in EW_BATCHED.items():
+        xs, qs = (x_hist, q_hist) if src == "hist" else (x_sift, q_sift)
+        d = xs.shape[1]
+        if cq == 1:
+            groups = torch.randint(0, xs.shape[0] // 128, (nb, k // 128), device=dev, generator=gen)
+            ids = (groups[:, :, None] * 128 + torch.arange(128, device=dev)).reshape(nb, k)
+            q = qs[:nb, None, :].contiguous()
+        else:
+            ids = torch.randint(0, xs.shape[0], (nb, k), device=dev, generator=gen)
+            q = xs[torch.randint(0, xs.shape[0], (nb, cq), device=dev, generator=gen)]
+        rows = xs[ids]
+        pad = torch.zeros(nb, k, device=dev)
+        pad[-1, -64:] = float("inf")
+        err = 0.0
+        for f in (("js", "jsmetr") if form == "js" else (form,)):
+            got = EW.elementwise_batched(f, q, rows, pad)
+            torch.cuda.synchronize()
+            err = max(err, _ew_compare(f"batched {label} {f}", got, EW.elementwise_batched_reference(f, q, rows, pad),
+                                       f == "linf"))
+            del got
+        kms = _cuda_ms(lambda: EW.elementwise_batched(form, q, rows, pad), 10)
+        pms = _cuda_ms(lambda: EW.elementwise_batched_reference(form, q, rows, pad), 1)
+        lib_ms = _cuda_ms(lambda: torch.cdist(q, rows, p=cdist_p), 3) if cdist_p is not None else None
+        bms, by = _ew_batched_bound_ms(form, nb, cq, k, d)
+        fp32, mufu = _ew_min_ops(form)
+        print(f"[dense] kernel batched {label} {form} B={nb} Cq={cq} K={k} D={d} (geometry "
+              f"{json.dumps(EW.batched_geometry(cq))}): max |kernel - plain| {err:.4g} (within rtol {EW_RTOL}); "
+              f"kernel {kms:.3f} ms, plain {pms:.3f} ms, "
+              + (f"batched torch.cdist(p={cdist_p}) {lib_ms:.3f} ms" if lib_ms is not None else "no library call")
+              + f"; bound {bms:.3f} ms ({by}: {4 * (nb * cq * d + nb * k * d + nb * k + nb * cq * k) / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s, {fp32} FP32 instructions and {mufu} MUFU operations an element "
+              f"pair), {bms / kms:.1%} of it; {smi}", flush=True)
+        out[label] = {"max_abs_err": err, "ms": kms, "plain_ms": pms, "library_ms": lib_ms, "bound_ms": bms,
+                      "bound_by": by, "shape": [nb, cq, k, d]}
+        del q, rows, pad, ids
+        torch.cuda.empty_cache()
+    return out
+
+
 def _phase_dense(smi, corpus, queries):
     """Phase 17: the dense spaces beyond l2, the scalar products and
     l2sqr_sift, over Dirichlet(0.1) histograms (the LDA topic histograms
@@ -2305,30 +2501,37 @@ def _phase_dense(smi, corpus, queries):
     build_l1 = time.perf_counter() - tb
     ew_totals = dict.fromkeys(GM.ELEMENTWISE, 0)
     ew_runs = {}
+    plain_on_card = {}  # run -> calls of the plain versions on CUDA tensors in it (_PlainGuard)
 
     def ew_run(tag, fn):
         """``fn()`` with every launch count set to 0 just before it; returns (its result, every
         count just after). Keeps the elementwise kernel's counts as run ``tag``'s and adds them
-        to the phase's totals."""
+        to the phase's totals; counts the plain versions' calls on CUDA tensors in it."""
         GM.reset_launches()
-        res = fn()
+        with _PlainGuard() as guard:
+            res = fn()
         got = dict(GM.launches)
+        plain_on_card[tag] = guard.count
         ew_runs[tag] = {k: got[k] for k in GM.ELEMENTWISE}
         for k in GM.ELEMENTWISE:
             ew_totals[k] += got[k]
         return res, got
 
-    def only(key, count=1):
-        """The launch counts of a run that launched ``key`` ``count`` times and nothing else."""
-        return {k: count if k == key else 0 for k in GM.launches}
+    def only(**counts):
+        """The launch counts of a run that launched each key of ``counts`` that many times and
+        nothing else."""
+        return {k: counts.get(k, 0) for k in GM.launches}
 
+    pass2_launches = -(-N_QUERIES // SS._PASS2_QBLK)  # one batched launch a 1024-query block
     (d1, i1), l1_launches = ew_run("l1 1M", lambda: li.knn_query_batch(queries, K))
-    _require(li.method.last_route == "twopass" and l1_launches == only("elementwise_groupmin_l1"),
+    _require(li.method.last_route == "twopass" and l1_launches == only(elementwise_groupmin_l1=1,
+                                                                       elementwise_batched_l1=pass2_launches),
              lambda: f"l1 1M: route {li.method.last_route}, launches {l1_launches}")
     med1, tmin1, tmax1 = _median_ms(lambda: li.knn_query_batch(queries, K))
     stages1, _ = _breakdown(li, queries, K)
     print(f"[dense] l1 {N_CORPUS} x {DIM} sift_like: build {build_l1:.3f} s; route {li.method.last_route} (pass 1 "
-          f"one elementwise group-min launch), launches {l1_launches}; knn_query_batch Q={N_QUERIES} k={K}: "
+          f"one elementwise group-min launch, pass 2 one batched launch a {SS._PASS2_QBLK}-query block), launches "
+          f"{ {k: v for k, v in l1_launches.items() if v} }; knn_query_batch Q={N_QUERIES} k={K}: "
           f"median {med1:.3f} ms of 7 (min {tmin1:.3f}, max {tmax1:.3f}), {N_QUERIES / med1 * 1e3:.1f} qps; "
           f"device ms per stage {json.dumps({k: round(v, 4) for k, v in stages1.items()})}; {smi}", flush=True)
     nq1 = 256
@@ -2349,6 +2552,15 @@ def _phase_dense(smi, corpus, queries):
           f"0 are 0.0 in the kernel", flush=True)
     q_all = torch.from_numpy(queries).to(dev)
     out["ew_kernel"] = _ew_kernel_check(smi, x_dev, q_all, hx_dev, hq_dev, sass)
+    runs_b = _ew_batched_sweep()
+    huge = _ew_js_huge()
+    print(f"[dense] kernel batched edge sweep: {runs_b} runs (l1, linf, lp at p {', '.join(f'{p:g}' for p in EW_SWEEP_P)}, "
+          f"js, jsmetr; B 3, Cq 1, 5, 40; K 1, 37, 300; D 8, 20 (zero columns appended), 136; histograms, signed "
+          f"normals and tiny cells; NaN, +-inf and zero cells, +inf and 1e30 pads): each NaN cell for NaN cell, "
+          f"linf bit-equal, the others within rtol {EW_RTOL}; the JS pair of two 2e38 cells "
+          f"{json.dumps(huge)} (tpu_knn's {EW_JS_HUGE:.7g}, finite in every epilogue)", flush=True)
+    out["ew_batched"] = _ew_batched_check(smi, x_dev, q_all, hx_dev, hq_dev)
+    out["ew_batched"]["edge_runs"], out["ew_batched"]["js_huge"] = runs_b, huge
     del q_all, x_dev
     torch.cuda.empty_cache()
 
@@ -2359,7 +2571,8 @@ def _phase_dense(smi, corpus, queries):
         ix.add_dense_batch(hx)
         ix.build_index()
         (dj, ij), lj = ew_run(f"{name} 1M", lambda: ix.knn_query_batch(hq[:nqj], K))
-        want_l = only("elementwise_groupmin_js" if ix.space.pass1_elementwise() else None)
+        want_l = only(**({"elementwise_groupmin_js": 1, "elementwise_batched_js": 1}
+                         if ix.space.pass1_elementwise() else {}))
         _require(ix.method.last_route == "twopass" and lj == want_l,
                  lambda: f"{name}: route {ix.method.last_route}, launches {lj}")
         medj, tminj, tmaxj = _median_ms(lambda: ix.knn_query_batch(hq[:nqj], K), 3)
@@ -2389,15 +2602,20 @@ def _phase_dense(smi, corpus, queries):
             _require(ix.method.last_route == want, lambda: f"{label} {n} rows: route {ix.method.last_route}")
             affine = ix.space.pass1_affine() is not None
             ew = ix.space.pass1_elementwise()
-            # pass 1 one group-min launch, or the single pass one distance launch a chunk
+            # pass 1 one group-min launch and pass 2 one batched launch, or the single pass one
+            # distance launch a chunk
             want_ew = dict.fromkeys(GM.ELEMENTWISE, 0)
-            if ew is not None:
-                want_ew[EW.launch_key("groupmin" if want == "twopass" else "dists", ew[0])] = (
-                    1 if want == "twopass" else ix.method.data.ids.shape[0] // ix.method._chunk)
+            if ew is not None and want == "twopass":
+                want_ew[EW.launch_key("groupmin", ew[0])] = 1
+                want_ew[EW.launch_key("batched", ew[0])] = -(-nq2 // SS._PASS2_QBLK)
+            elif ew is not None:
+                want_ew[EW.launch_key("dists", ew[0])] = ix.method.data.ids.shape[0] // ix.method._chunk
             _require((lw["float32"] > 0) == (affine and want == "twopass") and ew_runs[f"{label} {want}"] == want_ew,
                      lambda: f"{label} {n} rows: launches {lw}, want elementwise {want_ew}")
             _check_dense_oracle(f"{label} {want} route, {n} rows", name, i, d, qs_dev, xs_dev[:n], K, params)
             routes[f"{label} {want}"] = lw["float32"] + sum(want_ew.values())
+            if label == "l1" and want == "twopass":
+                l1_exact = (d, i)  # the 20,000-row methods below are held to these ids
             if ew is not None:  # the launches this run made, on its own tensors
                 _ew_hold_index(f"{label} {want} route, {n} rows", ix, qsrc[:nq2], want)
             if n == n2 and name in ("l1", "kldivgenfast"):
@@ -2409,19 +2627,6 @@ def _phase_dense(smi, corpus, queries):
           f"elementwise name's two-pass and single-pass runs above, within rtol {EW_RTOL} (linf bit-equal)",
           flush=True)
     out["routes"] = routes
-    _require(all(c > 0 for c in ew_totals.values()),
-             lambda: f"an elementwise kernel instance never launched on phase 17's paths: {ew_totals}")
-    # each record row's launches and numbers come from the run that row names
-    out["ew_record"] = {}
-    for key, (counter, run, numbers) in EW_RECORD.items():
-        r = ew_main.get(numbers) or out["ew_kernel"][numbers][key.split("_")[1]]
-        out["ew_record"][key] = {**r, "launches": ew_runs[run][counter], "launches_from": run}
-        _require(ew_runs[run][counter] > 0, lambda: f"{key}: no launch in the run {run!r}: {ew_runs[run]}")
-    print(f"[dense] elementwise kernel launches on phase 17's paths, all runs {json.dumps(ew_totals)}; the "
-          f"kernels record's launches, each from its own run "
-          f"{json.dumps({k: [v['launches_from'], v['launches']] for k, v in out['ew_record'].items()})}; its "
-          f"numbers from the shapes {json.dumps({k: v['shape'] for k, v in out['ew_record'].items()})}",
-          flush=True)
     torch.cuda.empty_cache()
 
     # ---- HNSW: the default index over 20,000 histograms, waves (cut from 100,000: the cell has
@@ -2467,25 +2672,79 @@ def _phase_dense(smi, corpus, queries):
     del hi, hm
     torch.cuda.empty_cache()
 
-    # ---- HNSW over l1 at 20,000 rows: the generic pair scoring ----
+    # ---- HNSW over l1 at 20,000 rows: the batched epilogue's beam and pairs ----
     li = Index("l1", Params(dim=DIM), device="cuda")
     li.add_dense_batch(corpus[:n2])
     tb = time.perf_counter()
-    li.build_index(Params(M=16, efConstruction=100, waveSize=1024))
+    _, hl = ew_run("hnsw l1", lambda: li.build_index(Params(M=16, efConstruction=100, waveSize=1024)))
     torch.cuda.synchronize()
     build_hl = time.perf_counter() - tb
     chk = li.method.check_graph()
     _, gl = GoldStandard(li.space, li.store).compute_knn(queries[:nq2], K)
     li.set_query_time_params(Params(efSearch=100))
-    ds, is_ = li.knn_query_batch(corpus[:256], K)
+    (ds, is_), _ = ew_run("hnsw l1 search", lambda: li.knn_query_batch(corpus[:256], K))
     self_first = float(np.mean(is_[:, 0] == np.arange(256)))
     rec = _recall_at(li.knn_query_batch(queries[:nq2], K)[1], gl, K)
-    print(f"[dense] hnsw l1 {n2} x {DIM}, M=16 efConstruction=100 waveSize=1024: build {build_hl:.2f} s, "
-          f"check_graph {chk}, self-query first {self_first:.4f}, recall@{K} at efSearch=100 {rec:.4f}; {smi}",
+    print(f"[dense] hnsw l1 {n2} x {DIM}, M=16 efConstruction=100 waveSize=1024: build {build_hl:.2f} s (launches "
+          f"{ {k: v for k, v in hl.items() if v} }), check_graph {chk}, self-query first {self_first:.4f}, "
+          f"recall@{K} at efSearch=100 {rec:.4f}; {smi}", flush=True)
+    _require(chk == zero and self_first == 1.0 and rec >= 0.9 and hl["elementwise_batched_l1"] > 0,
+             lambda: f"hnsw l1: check_graph {chk}, self-query first {self_first}, recall {rec}, launches {hl}")
+    out["hnsw_l1"] = {"build_s": build_hl, "recall": rec, "batched_launches": hl["elementwise_batched_l1"]}
+    del li
+    torch.cuda.empty_cache()
+
+    # ---- l1 at 20,000 rows through the other methods, held to the two-pass scan's ids ----
+    out["l1_methods"] = {}
+    ex_d, _ = l1_exact
+    for label, method, build, qp, floor in (
+            ("vptree", "vptree", {}, {}, 0.99),  # the exact pruner: l1 is a metric
+            ("napp", "napp", {"numPivot": 256, "numPrefix": 32}, {"minTimes": 2}, 0.9),
+            ("sw-graph", "sw-graph", {"NN": 16, "efConstruction": 100, "waveSize": 1024}, {"efSearch": 100}, 0.9),
+            # NN-descent needs an affine form (hnsw._nnd_eligible, as tpu_knn's): this build takes the waves
+            ("nndescent", "hnsw", {"M": 16, "efConstruction": 64, "waveSize": 1024, "buildAlgo": "nndescent"},
+             {"efSearch": 100}, 0.9)):
+        ix = Index("l1", Params(dim=DIM), method=method, device="cuda")
+        ix.add_dense_batch(corpus[:n2])
+        tb = time.perf_counter()
+        _, lb = ew_run(f"l1 {label}", lambda: ix.build_index(Params(build)))
+        torch.cuda.synchronize()
+        bs = time.perf_counter() - tb
+        ix.set_query_time_params(Params(qp))
+        (dm, im), lq = ew_run(f"l1 {label} search", lambda: ix.knn_query_batch(queries[:nq2], K))
+        # the scan's pass 2 (batched epilogue) and these methods' scorers (the distance epilogue
+        # too) sum in different orders: a k-th neighbour may come back an ulp or so above its
+        # scan distance, so the tie bound takes the f32 bound of a D-term sum
+        rec = _tie_recall(dm, ex_d, K, (DIM + 8) * U)
+        ew_l = {k: lb[k] + lq[k] for k in GM.ELEMENTWISE if lb[k] + lq[k]}
+        extra = f", NN-descent eligible {ix.method._nnd_eligible()}" if method == "hnsw" else ""
+        print(f"[dense] l1 {method} {n2} x {DIM} {json.dumps(build)} {json.dumps(qp)}: build {bs:.2f} s{extra}; "
+              f"tie-aware recall@{K} against the two-pass scan's {rec:.4f} (floor {floor}); elementwise launches "
+              f"{json.dumps(ew_l)}; {smi}", flush=True)
+        _require(rec >= floor and sum(ew_l.values()) > 0 and (method != "hnsw" or not ix.method._nnd_eligible()),
+                 lambda: f"l1 {label}: recall {rec}, launches {ew_l}")
+        out["l1_methods"][label] = {"build_s": bs, "recall": rec, "launches": ew_l}
+        del ix
+        torch.cuda.empty_cache()
+
+    _require(all(c > 0 for c in ew_totals.values()),
+             lambda: f"an elementwise kernel instance never launched on phase 17's paths: {ew_totals}")
+    _require(sum(plain_on_card.values()) == 0,
+             lambda: f"a plain version ran on CUDA tensors in phase 17's index runs: "
+                     f"{ {k: v for k, v in plain_on_card.items() if v} }")
+    # each record row's launches and numbers come from the run that row names
+    out["ew_record"] = {}
+    for key, (counter, run, numbers) in EW_RECORD.items():
+        r = ew_main.get(numbers) or out["ew_batched"].get(numbers) or out["ew_kernel"][numbers][key.split("_")[1]]
+        out["ew_record"][key] = {**r, "launches": ew_runs[run][counter], "launches_from": run}
+        _require(ew_runs[run][counter] > 0, lambda: f"{key}: no launch in the run {run!r}: {ew_runs[run]}")
+    print(f"[dense] elementwise kernel launches on phase 17's paths, all runs {json.dumps(ew_totals)}; calls of "
+          f"the plain versions on CUDA tensors in its {len(plain_on_card)} index runs: "
+          f"{sum(plain_on_card.values())}; the kernels record's launches, each from its own run "
+          f"{json.dumps({k: [v['launches_from'], v['launches']] for k, v in out['ew_record'].items()})}; its "
+          f"numbers from the shapes {json.dumps({k: v['shape'] for k, v in out['ew_record'].items()})}",
           flush=True)
-    _require(chk == zero and self_first == 1.0 and rec >= 0.9,
-             lambda: f"hnsw l1: check_graph {chk}, self-query first {self_first}, recall {rec}")
-    out["hnsw_l1"] = {"build_s": build_hl, "recall": rec}
+    out["plain_on_card"] = sum(plain_on_card.values())
     return out
 
 
@@ -2664,7 +2923,7 @@ def _phase_sparse(smi):
     build (M=16, efConstruction=100, waveSize=512); (b) the default build
     (sketch proxy, sketchDim=1024, exactBase, exactPairs) on the same rows;
     (c) the 1M exact scan (sparse_like(1_000_512, vocab=60_000, nnz=64));
-    (d) 10,000-row side cells. Returns the numbers it printed."""
+    (d) 5,000-row side cells. Returns the numbers it printed."""
     import os
     import shutil
     import tempfile
@@ -2760,9 +3019,11 @@ def _phase_sparse(smi):
     del hx, ex
     torch.cuda.empty_cache()
 
-    # ---- (d) side cells at 10,000 rows (cut from 20,000 to keep the phase near 300 s; the exact-wave
-    # build, sketchDim=0, moved here from 100,000 rows: its graph holds tpu_knn's on the CPU) ----
-    n2, nq2 = 10_000, 256
+    # ---- (d) side cells at 5,000 rows (cut from 20,000 to keep the phase near 300 s, then from
+    # 10,000: the whole script took 1292.7 s of command on a slow host, NVIDIA H100 80GB HBM3,
+    # 700 W; the exact-wave build, sketchDim=0, moved here from 100,000 rows: its graph holds
+    # tpu_knn's on the CPU) ----
+    n2, nq2 = 5_000, 256
     c2, q2 = corpus[:n2], queries[:nq2]
     x2, qq2 = x64[:n2], q64[:nq2]
     oracles = {}
@@ -3301,10 +3562,11 @@ def _phase_invindx(smi):
 # ---------------- phase 20: VP-tree, sw-graph, the string spaces, SQFD, fusion, dummy ----------------
 
 
-def _tie_recall(d, d_gold, k: int) -> float:
+def _tie_recall(d, d_gold, k: int, rtol: float = 0.0) -> float:
     """Tie-aware recall@k: a returned id counts when its distance is at most
-    the true k-th distance (integer distances tie in bulk)."""
-    kth = d_gold[:, k - 1:k]
+    the true k-th distance (integer distances tie in bulk), or ``rtol`` of it
+    above (two kernels that sum in different orders round apart)."""
+    kth = d_gold[:, k - 1:k] * (1.0 + rtol)
     return float(np.mean(np.sum(np.isfinite(d[:, :k]) & (d[:, :k] <= kth), axis=1) / k))
 
 
@@ -3513,7 +3775,7 @@ def _phase_string(smi):
     """(c) [string]: leven and normleven over 100,000 seeded DNA-like
     strings and 256 queries made by 1-4 seeded edits of corpus strings:
     seq_search k=10 (ms a batch), distances against the native Levenshtein
-    over every pair for 16 queries; HNSW over 10,000 of the strings.
+    over every pair for 16 queries; HNSW over 5,000 of the strings.
     Returns the numbers it printed."""
     import torch
     from tpu_knn_torch import DataKind, DistKind, Index, Params
@@ -3567,9 +3829,10 @@ def _phase_string(smi):
         if name == "leven":
             gold_d, scan = d, ix
         del ix
-    # 10,000 strings: at 20,000 the build took 91.25 s, more than the phase's
-    # share of the script's time (NVIDIA H100 80GB HBM3, 700 W)
-    n2 = 10_000
+    # 5,000 strings: at 20,000 the build took 91.25 s, more than the phase's
+    # share of the script's time (NVIDIA H100 80GB HBM3, 700 W); at 10,000 46.37 s
+    # (the whole script took 1292.7 s of command on a slow host, NVIDIA H100 80GB HBM3, 700 W)
+    n2 = 5_000
     hs = Index("leven", method="hnsw", data_type=DataKind.STRING, dist_type=DistKind.INT, device="cuda")
     hs.add_string_batch(corpus[:n2])
     tb = time.perf_counter()
@@ -3763,7 +4026,7 @@ def _cli_tables(path: str) -> dict:
 def _phase_cli(smi, corpus, queries):
     """[cli]: tpu_knn_torch.cli.main in-process over phase 4's 1,000,000 rows
     written as .fvecs (seq_search, 2048 bootstrap queries, recall 1, the f32
-    kernel launched); hnsw over 20,000 of them with --queryFile, --saveIndex
+    kernel launched); hnsw over 10,000 of them with --queryFile, --saveIndex
     and --loadIndex (equal tables); one ``python -m tpu_knn_torch``
     subprocess. Returns the numbers it printed."""
     import os
@@ -3777,9 +4040,9 @@ def _phase_cli(smi, corpus, queries):
     out = {}
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        big, small, qf = (os.path.join(tmp, f) for f in ("sift1m.fvecs", "sift20k.fvecs", "q.fvecs"))
+        big, small, qf = (os.path.join(tmp, f) for f in ("sift1m.fvecs", "sift10k.fvecs", "q.fvecs"))
         write_vecs(big, corpus)
-        write_vecs(small, corpus[:20_000])
+        write_vecs(small, corpus[:10_000])  # cut from 20,000 (a slow host passed the script's 1200 s)
         write_vecs(qf, queries)
         base = ["--spaceType", "l2", "--spaceParams", f"dim={DIM}", "--device", "cuda"]
         res = os.path.join(tmp, "seq.txt")
@@ -3810,7 +4073,7 @@ def _phase_cli(smi, corpus, queries):
         a, b = _cli_tables(built_txt), _cli_tables(loaded_txt)
         _require(a == b and a, lambda: f"cli hnsw: the loaded index's table differs: {a} vs {b}")
         rows = a[f"kNN k={K} (method=hnsw, space=l2)"]
-        print(f"[cli] hnsw over 20,000 rows, --queryFile {N_QUERIES} queries: build+save+sweep {t_build:.2f} s, "
+        print(f"[cli] hnsw over 10,000 rows, --queryFile {N_QUERIES} queries: build+save+sweep {t_build:.2f} s, "
               f"load+sweep {t_load:.2f} s, equal tables: {rows}; {smi}", flush=True)
         _require(float(rows[1]["recall"]) >= 0.99, lambda: f"cli hnsw recall at efSearch=100: {rows[1]}")
         out.update(hnsw_build_s=t_build, hnsw_load_s=t_load, hnsw_rows=rows)
@@ -3824,7 +4087,7 @@ def _phase_cli(smi, corpus, queries):
         _require(r.returncode == 0, lambda: f"python -m tpu_knn_torch: rc {r.returncode}: {r.stderr[-2000:]}")
         rows = _cli_tables(sub_txt)[f"kNN k={K} (method=seq_search, space=l2)"]
         _require(rows[0]["recall"] == "1", lambda: f"python -m tpu_knn_torch: {rows[0]}")
-        print(f"[cli] subprocess python -m tpu_knn_torch --device cuda, seq_search over 20,000 rows: rc 0 in "
+        print(f"[cli] subprocess python -m tpu_knn_torch --device cuda, seq_search over 10,000 rows: rc 0 in "
               f"{t_sub:.2f} s, recall {rows[0]['recall']}; {smi}", flush=True)
         out["subprocess_s"] = t_sub
     finally:
@@ -3858,9 +4121,9 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
     """[mesh]: (b) the sharded exact scan, Index(..., method="seq_search",
     mesh=4) over phase 4's 1M rows against phase 4's ids, timed in turns
     with the single-device index, range at phase 9's radius and the
-    two-tier merge; (c) the sharded HNSW over 40,000 of HNSW-100k's rows
+    two-tier merge; (c) the sharded HNSW over 20,000 of HNSW-100k's rows
     (stacked waves), recall, check_graph and save/load, then NN-descent
-    over 4 x 10,000 rows twice from one seed. Returns the numbers it
+    over 4 x 5,000 rows twice from one seed. Returns the numbers it
     printed."""
     import os
     import shutil
@@ -3957,10 +4220,11 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
     torch.cuda.empty_cache()
 
     # ---- (c) the sharded HNSW ----
-    # the first 40,000 of HNSW-100k's rows (cut from all 100,000: the whole
-    # script passed ~1,050 s with them, PERF.md section 4), its 2048 queries
+    # the first 20,000 of HNSW-100k's rows (cut from all 100,000: the whole
+    # script passed ~1,050 s with them, PERF.md section 4; then from 40,000:
+    # the whole script took 1292.7 s of command on a slow host, NVIDIA H100 80GB HBM3, 700 W), its 2048 queries
     n_cell, nq, k = 100_000, N_QUERIES, K
-    n = 40_000
+    n = 20_000
     xall = sift_like(n_cell + nq, DIM, seed=0)
     hx, hq = xall[:n], xall[n_cell:]
     exact = Index("l2", Params(dim=DIM), method="seq_search", device="cuda")
@@ -4012,7 +4276,7 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
     del hix, back, exact
     torch.cuda.empty_cache()
 
-    # NN-descent per shard over 4 x 10,000 rows, twice from one seed
+    # NN-descent per shard over 4 x 5,000 rows, twice from one seed
     states, tn = [], []
     for _ in range(2):
         nix = Index("l2", Params(dim=DIM), mesh=4, device="cuda")
@@ -4029,8 +4293,8 @@ def _phase_mesh(smi, corpus, queries, i10, d10):
         for key in states[0])
     _require(same, lambda: "mesh=4 nndescent: two builds from one seed differ")
     nix.set_query_time_params(Params(efSearch=50))
-    rec4 = _recall_at(nix.knn_query_batch(hq, k)[1], gi, k)  # the same 40,000 rows
-    print(f"[mesh] (c) nndescent, mesh=4 over 4 x 10,000 rows: builds {tn[0]:.2f} s and {tn[1]:.2f} s, check_graph "
+    rec4 = _recall_at(nix.knn_query_batch(hq, k)[1], gi, k)  # the same 20,000 rows
+    print(f"[mesh] (c) nndescent, mesh=4 over 4 x 5,000 rows: builds {tn[0]:.2f} s and {tn[1]:.2f} s, check_graph "
           f"zero on every shard, the two graphs equal (torch.equal); recall@{k} at efSearch=50 {rec4:.4f}; {smi}",
           flush=True)
     out.update(nnd_build_s=tn, nnd_recall=rec4)
@@ -4536,11 +4800,14 @@ def main() -> int:
         for name, tier, src, rep, n_launch, err, kms, pms in rows
     ]}
     # the elementwise kernel, each form and epilogue: the l1 and jsdivfast group mins at their
-    # 1M cells' shapes, the others at phase 17's 65,536-row check; launches from the run each
-    # row names (EW_RECORD; lp at p=3 and, in rows of their own, at p=0.7); library_ms:
-    # torch.cdist's distances for L1, LINF and LP
+    # 1M cells' shapes, the batched epilogue at pass 2's and the heuristic pairs' shapes
+    # (EW_BATCHED), the others at phase 17's 65,536-row check; launches from the run each row
+    # names (EW_RECORD; lp at p=3 and, in rows of their own, at p=0.7); library_ms: torch.cdist's
+    # distances (batched for the batched epilogue) for L1, LINF and LP
     replaces = {"groupmin": "tpu_knn/methods/seq_search.py:233 pass1_jnp (XLA fusion)",
-                "dists": "tpu_knn/ops/distance.py:205 elementwise_blocked (XLA fusion)"}
+                "dists": "tpu_knn/ops/distance.py:205 elementwise_blocked (XLA fusion)",
+                "batched": "tpu_knn/ops/graph.py:152 score_gathered, tpu_knn/methods/hnsw.py:78 _score_pairs "
+                           "(jax.vmap of space.block, XLA fusion)"}
     for key, r in dn["ew_record"].items():
         record["kernels"].append({
             "name": key, "route": "cuda", "source": "tpu_knn_torch/csrc/groupmin_elementwise.cu",

@@ -187,9 +187,11 @@ def test_kernel_route_needs_d_multiple_of_8(epilogue, d):
 
 
 def test_launch_keys_are_the_shared_counters():
-    """Every form's launches of either epilogue are counted in
-    ops/groupmin.py's ``launches``, one key an epilogue and kernel form."""
-    keys = {EW.launch_key(e, f) for e in ("groupmin", "dists") for f in EW.FORMS}
+    """Every form's launches of each epilogue (group mins, distances,
+    batched) are counted in ops/groupmin.py's ``launches``, one key an
+    epilogue and kernel form."""
+    assert EW.EPILOGUES == ("groupmin", "dists", "batched")
+    keys = {EW.launch_key(e, f) for e in EW.EPILOGUES for f in EW.FORMS}
     assert keys == set(GM.ELEMENTWISE) and set(GM.launches) == set(GM.TIERS) | keys
     assert EW.launch_key("dists", "jsmetr") == "elementwise_dists_js"
 
@@ -275,7 +277,7 @@ def test_scan_routes_through_the_wrappers(monkeypatch, name, want):
 
 JS_TINY2 = np.float32(2) * np.float32(1e-38)  # 2e-38, normal: the clamp of lg2(a + b)
 HALF_MAX = np.float32(np.finfo(np.float32).max / 2)  # past it 2a overflows
-JS_POST = np.float32(0.5 * np.log(2.0))  # the sums are in log2 units
+JS_POST = np.float32(2 * np.log(2.0))  # 4 * 0.5 ln 2: the sums are in quarter log2 units
 
 
 def _ipow(t, n):
@@ -302,19 +304,21 @@ def _js_lg2(s):
 
 
 def _js_row_lg2(v):
-    """The staged log of an element: lg2 of 2 max(v, 1e-38) as the pair log takes a + a; lg2(v) + 1
-    past FLT_MAX / 2."""
-    return torch.where(v > float(HALF_MAX), torch.log2(v) + 1.0, _js_lg2(2.0 * v))
+    """The staged log of an element, a quarter of lg2 of 2 max(v, 1e-38) as the pair log takes
+    a + a; of lg2(v) + 1 past FLT_MAX / 2."""
+    return 0.25 * torch.where(v > float(HALF_MAX), torch.log2(v) + 1.0, _js_lg2(2.0 * v))
 
 
 def _model_js(q, x, metric: bool):
-    """JS as the kernel takes it: one lg2 a pair, a (La - L) + b (Lb - L) where both values are
-    non-negative, the plain version's selects (v > 0 ? v (Lv - L) : 0) where one is negative or
-    NaN (the kernel decides per staged tile; on a pair of non-negative values both forms give the
-    same term), then 0.5 ln 2 and, for the metric, sqrt(max(., 0))."""
+    """JS as the kernel takes it (every epilogue): one lg2 a pair, a (La/4 - L/4) + b (Lb/4 - L/4)
+    where both values are non-negative (each bracket one FFMA, L/4 exact: one rounding as here),
+    the plain version's selects (v > 0 ? v (Lv/4 - L/4) : 0) where one is negative or NaN (the
+    group-min and distance epilogues decide per staged tile, the batched one always selects; on a
+    pair of non-negative values both forms give the same term), then 2 ln 2 and, for the metric,
+    sqrt(max(., 0))."""
     a, b = q[:, None, :], x[None, :, :]
     la, lb = _js_row_lg2(q)[:, None, :], _js_row_lg2(x)[None, :, :]
-    lm = _js_lg2(a + b)
+    lm = 0.25 * _js_lg2(a + b)
     fast = a * (la - lm) + b * (lb - lm)
     guarded = torch.where(a > 0, a * (la - lm), 0.0) + torch.where(b > 0, b * (lb - lm), 0.0)
     d = torch.where((a >= 0) & (b >= 0), fast, guarded).sum(-1) * float(JS_POST)
@@ -340,8 +344,8 @@ MODEL_CASES = [("lp", p, kind) for p in (3.0, 4.0, 5.0, 0.7, 2.5) for kind in ("
 def _model_inputs(kind, seed):
     """The edge sweep's inputs (zero rows, NaN, +-inf cells); "huge": histograms with a cell past
     FLT_MAX / 2 in a query and in a corpus row and one below it in another, in one column, so
-    that the query's a + b overflows against both. One huge cell a pair: the kernel sums in log2
-    units, 2.885 times the plain version's sum, so two such terms overflow there first."""
+    that the query's a + b overflows against both (test_js_two_huge_cells_stay_finite puts two
+    huge cells in one pair)."""
     q, x, _ = _inputs("hist" if kind == "huge" else kind, seed)
     if kind == "huge":
         q[4, 3], x[8, 3], x[9, 3] = 2e38, 3e38, 1.5e38

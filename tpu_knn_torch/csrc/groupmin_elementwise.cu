@@ -1,6 +1,8 @@
-// The exact scan of the spaces with no affine form: fused elementwise
-// distance with a 128-row group-min epilogue (pass 1) or a distance
-// epilogue (the single-pass and range scans).
+// The spaces with no affine form: fused elementwise distance with a
+// 128-row group-min epilogue (pass 1 of the exact scan), a distance epilogue
+// (the single-pass and range scans, and every space.block of these spaces)
+// or a batched epilogue (each query against its own gathered rows: pass 2,
+// the graph scorers and the construction heuristic's pairs).
 //
 // Replaces what XLA fuses in tpu_knn/methods/seq_search.py:233 pass1_jnp: a
 // lax.scan of space.block, which is tpu_knn/ops/distance.py:205
@@ -22,7 +24,10 @@
 //
 // and writes either the group mins out[i, g] = min over the 128 rows r of
 // group g of d[i, r], f32[Q, N/128], over the whole corpus in one launch, or
-// d itself, f32[Q, N], for one corpus slice. The mins and the maxes carry NaN
+// d itself, f32[Q, N], for one corpus slice. The batched epilogue (at the
+// end of this file) computes the same d for q f32[B, Cq, D] against rows
+// f32[B, K, D] with pad f32[B, K]: out[b, i, j], f32[B, Cq, K], each batch
+// item's queries against its own rows (tpu_knn vmaps space.block there). The mins and the maxes carry NaN
 // (min_nan.cuh), as torch.amin / torch.amax / torch.clamp_min do; v > 0 is
 // false for a NaN v, as in torch.where.
 //
@@ -34,18 +39,23 @@
 //   LP, any other p: ex2(p lg2 t) on the special-function unit (MUFU), the
 //     non-FTZ PTX forms: a subnormal t keeps its power; t = 0 gives lg2 =
 //     -inf and ex2 = 0, +inf stays +inf, NaN stays NaN.
-//   JS, in log2 units: La = lg2(2 max(a, 1e-38)) per staged element, then a
-//     pair takes one MUFU lg2, L = lg2(max(a + b, 2e-38)) = lg2(2 max(m,
-//     1e-38)), and adds a (La - L) + b (Lb - L); the post multiplies by 0.5
-//     ln 2. La and L are the same function of the same value when a == b, so
-//     a row against itself sums exact zeros, as the plain version does. A
-//     stage whose tiles hold a negative or NaN value takes the pair with the
-//     plain version's selects (v > 0 ? v (Lv - L) : 0): there 0 * (Lv - L)
-//     would turn a NaN or infinite L into NaN where the plain term is 0. The
+//   JS, in quarter log2 units: La/4 = lg2(2 max(a, 1e-38)) / 4 per staged
+//     element, then a pair takes one MUFU lg2, L = lg2(max(a + b, 2e-38)) =
+//     lg2(2 max(m, 1e-38)), and adds a (La/4 - L/4) + b (Lb/4 - L/4), each
+//     bracket one FFMA (L times -1/4 plus La/4: the same instruction count as
+//     La - L); the post multiplies by 4 * 0.5 ln 2 = 2 ln 2. La and L are the
+//     same function of the same value when a == b, so a row against itself
+//     sums exact zeros, as the plain version does. A stage whose tiles hold
+//     a negative or NaN value takes the pair with the plain version's
+//     selects (v > 0 ? v (Lv/4 - L/4) : 0): there 0 * (Lv/4 - L/4) would
+//     turn a NaN or infinite L into NaN where the plain term is 0. The
 //     stage's flag is one block-wide OR at the barrier that ends its staging.
-//     The sum in log2 units is 1 / (0.5 ln 2) = 2.885 times the plain
-//     version's: a divergence past FLT_MAX / 2.885 (~1.2e38) overflows to
-//     +inf here where the plain sum may stay finite.
+//     The quarter is exact (a power of two) and keeps the sum at 1 / (2 ln
+//     2) = 0.72 times the plain version's: no distance overflows here that
+//     the plain version keeps finite (in whole log2 units the sum was 2.885
+//     times the plain one and overflowed past ~1.2e38). The clamp stays on
+//     a + b, unscaled, at the normal 2e-38; an a + b that overflows gives
+//     L = +inf and a -inf term, as the plain version's m does.
 //
 // What bounds it on an H100: instruction issue, 132 SMs x 4 schedulers a
 // clock (128 FP32 lanes), and the MUFU's 16 results a clock an SM, an eighth
@@ -81,7 +91,7 @@
 // to the instance's power for a product chain), N % 128 == 0 for the
 // group-min epilogue. Q and, for the distance epilogue, N may be ragged:
 // rows past them load zeros and are not written. Offsets are 64-bit: Q * N
-// passes 2^31.
+// passes 2^31. The batched epilogue takes the same, for any B, Cq and K.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -98,7 +108,7 @@ constexpr int BK = 8;    // depth of one shared-memory stage
 constexpr int NT = 256;  // threads per block
 constexpr float JS_TINY = 1e-38f;
 constexpr float JS_TINY2 = 2.f * JS_TINY;  // 2e-38, normal in f32
-constexpr float JS_POST = 0.34657359f;     // 0.5 ln 2: the sums are in log2 units
+constexpr float JS_POST = 1.38629436f;     // 4 * 0.5 ln 2: the sums are in quarter log2 units
 constexpr float HALF_MAX = 0x1.fffffep126f;  // FLT_MAX / 2: 2v overflows past it
 
 // LP's integer powers with an instance of their own (a product chain); every
@@ -142,12 +152,15 @@ __device__ __forceinline__ float ex2_approx(float v) {
 // 0.5 (a + b) clamped at 1e-38, NaN kept (a NaN s is a NaN L)
 __device__ __forceinline__ float js_lg2(float s) { return lg2_approx_ftz(max_nan(s, JS_TINY2)); }
 
-// JS's staged log of one element, La = lg2(2 max(a, 1e-38)): js_lg2 of a + a,
-// so that La - L is 0 exactly for a pair of equal elements; past FLT_MAX / 2,
-// where 2a overflows, lg2(a) + 1
+// JS's staged log of one element, La/4 = lg2(2 max(a, 1e-38)) / 4: js_lg2 of
+// a + a, so that La/4 - L/4 is 0 exactly for a pair of equal elements (the
+// quarter is exact); past FLT_MAX / 2, where 2a overflows, lg2(a) + 1
 __device__ __forceinline__ float js_row_lg2(float v) {
-  return v > HALF_MAX ? lg2_approx_ftz(v) + 1.f : js_lg2(2.f * v);
+  return 0.25f * (v > HALF_MAX ? lg2_approx_ftz(v) + 1.f : js_lg2(2.f * v));
 }
+
+// JS's bracket of one side of a pair, La/4 - L/4, as one FFMA
+__device__ __forceinline__ float js_diff(float la4, float l) { return fmaf(l, -0.25f, la4); }
 
 // t^N for N >= 1 by squaring
 template <int N>
@@ -162,7 +175,8 @@ __device__ __forceinline__ float ipow(float t) {
   }
 }
 
-// SIGNED: JS on a stage whose tiles hold a negative or NaN value
+// SIGNED: JS on a stage whose tiles hold a negative or NaN value; la and lb:
+// JS's staged js_row_lg2 of a and b
 template <int F, int P, bool SIGNED>
 __device__ __forceinline__ void accumulate(float& acc, float a, float la, float b, float lb, float p) {
   if constexpr (F == L1) {
@@ -181,14 +195,15 @@ __device__ __forceinline__ void accumulate(float& acc, float a, float la, float 
   } else if constexpr (F == LP) {
     acc = acc + ex2_approx(p * lg2_approx(fabsf(a - b)));
   } else if constexpr (!SIGNED) {
-    // a, b >= 0 and no NaN: a (La - L) is the plain version's term, 0 at a = 0
+    // a, b >= 0 and no NaN: a (La/4 - L/4) is the plain version's term over
+    // 2 ln 2, 0 at a = 0
     const float l = js_lg2(a + b);
-    acc = fmaf(a, la - l, acc);
-    acc = fmaf(b, lb - l, acc);
+    acc = fmaf(a, js_diff(la, l), acc);
+    acc = fmaf(b, js_diff(lb, l), acc);
   } else {
     const float l = js_lg2(a + b);
-    const float ta = a > 0.f ? a * (la - l) : 0.f;
-    const float tb = b > 0.f ? b * (lb - l) : 0.f;
+    const float ta = a > 0.f ? a * js_diff(la, l) : 0.f;
+    const float tb = b > 0.f ? b * js_diff(lb, l) : 0.f;
     acc = acc + (ta + tb);
   }
 }
@@ -444,6 +459,214 @@ int put_geometry(int* out) {
   return 0;
 }
 
+
+// ---- the batched epilogue ----
+//
+// out[b, i, j] = post(reduce_k f(q[b, i, k], rows[b, j, k])) + pad[b, j] for
+// q f32[B, Cq, D], rows f32[B, K, D], pad f32[B, K]: what tpu_knn computes by
+// vmapping space.block over the batch (ops/graph.py score_gathered, pass 2
+// and the beam, Cq = 1; methods/hnsw.py _score_pairs, the heuristic's and
+// sw-graph's pairs, Cq = C). No Pallas kernel stands behind it either.
+//
+// What bounds it: with Cq = 1 the bytes, each gathered row read once and
+// used by one query (pass 2 at Q = 2048 reads 1.6 GB of rows for 0.4 G
+// element pairs); with Cq in the tens, the form's work, as the other
+// epilogues. Design: a warp a row, its 32 lanes over 128 columns of D (one
+// 16-byte load each), so a row is read in full 512-byte lines. A block owns
+// one batch item and BR rows (RW a warp), and walks D in steps of 128 with
+// the step's columns of QG queries (and, for JS, their staged logs) in
+// shared memory, its loads in flight with the rows' loads. With Cq = 1
+// (QG = 1) each lane keeps one sum a row and a warp's shuffle reduction
+// ends it. With Cq > 1 (QG = 32) each lane keeps the sums of 32 queries
+// against its row and one reduce-scatter over the warp (31 shuffles for 32
+// sums) leaves on lane l the sum of query l:
+// five shuffles a (query, row) pair would cost more than the pair's own
+// 128 / 32 x 2 instructions at D = 128. Results go through shared memory so
+// that a query's BR distances are stored side by side. JS always takes the
+// guarded pair (a negative or NaN value anywhere is handled), its row logs
+// taken once a row and step, its query logs once a staged step.
+
+// QG: queries staged a pass (1 for Cq == 1, else 32: one a lane after the
+// reduce-scatter); RW: rows a warp keeps; BR: rows a block
+template <int QG>
+struct BatchedGeo {
+  static constexpr int RW = QG == 1 ? 4 : 1;
+  static constexpr int BR = (NT / 32) * RW;
+  // blocks an SM: QG = 32 keeps 32 sums a lane and its loads' latency is
+  // hidden by more blocks (at 2 blocks and RW = 2 ptxas spilled them)
+  static constexpr int MIN_BLOCKS = QG == 1 ? 2 : 3;
+};
+constexpr int BD = 128;  // D columns a step: 32 lanes x 4
+
+template <int F>
+__device__ __forceinline__ float combine(float a, float b) {
+  if constexpr (F == LINF) {
+    return max_nan(a, b);
+  } else {
+    return a + b;
+  }
+}
+
+// One halving step of the reduce-scatter: of its H pairs (v[i], v[i + H]) a
+// lane keeps the half on its side of bit H, adds the partner's copy of it,
+// and stores the sum in v[i]. H is a template argument so that every index
+// is a constant and v stays in registers.
+template <int F, int H>
+__device__ __forceinline__ void halve(float (&v)[32], int lane) {
+  const bool upper = lane & H;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float lo = v[i], hi = v[i + H];
+    const float send = upper ? lo : hi;
+    const float keep = upper ? hi : lo;
+    v[i] = combine<F>(keep, __shfl_xor_sync(0xffffffffu, send, H));
+  }
+}
+
+// The reduction over the warp's 32 lanes of v[i] for i = lane % N (N = 1:
+// every lane gets the reduction of v[0]; N = 32: lane l gets that of v[l],
+// after halving steps at H = 16, 8, 4, 2, 1).
+template <int F, int N>
+__device__ __forceinline__ float warp_reduce(float (&v)[N], int lane) {
+  static_assert(N == 1 || N == 32, "one sum, or one a lane");
+  if constexpr (N == 1) {
+    float r = v[0];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) r = combine<F>(r, __shfl_xor_sync(0xffffffffu, r, off));
+    return r;
+  } else {
+    halve<F, 16>(v, lane);
+    halve<F, 8>(v, lane);
+    halve<F, 4>(v, lane);
+    halve<F, 2>(v, lane);
+    halve<F, 1>(v, lane);
+    return v[0];
+  }
+}
+
+__device__ __forceinline__ float4 js_row_lg2_4(float4 v) {
+  return make_float4(js_row_lg2(v.x), js_row_lg2(v.y), js_row_lg2(v.z), js_row_lg2(v.w));
+}
+
+template <int F, int P>
+__device__ __forceinline__ void accumulate4(float& acc, float4 a, float4 la, float4 b, float4 lb, float p) {
+  // JS always takes the guarded pair (F == JS: SIGNED)
+  accumulate<F, P, true>(acc, a.x, la.x, b.x, lb.x, p);
+  accumulate<F, P, true>(acc, a.y, la.y, b.y, lb.y, p);
+  accumulate<F, P, true>(acc, a.z, la.z, b.z, lb.z, p);
+  accumulate<F, P, true>(acc, a.w, la.w, b.w, lb.w, p);
+}
+
+template <int F, int P, int QG>
+__global__ void __launch_bounds__(NT, BatchedGeo<QG>::MIN_BLOCKS)
+elementwise_batched_kernel(const float* __restrict__ q, const float* __restrict__ rows,
+                           const float* __restrict__ pad, float* __restrict__ out, int cq, int64_t k, int d,
+                           float p, float inv_p, int sqrt_post, int64_t row_tiles) {
+  constexpr int RW = BatchedGeo<QG>::RW, BR = BatchedGeo<QG>::BR;
+  constexpr int STAGE = (QG * 32 + NT - 1) / NT;  // staged float4 slots a thread
+  constexpr bool LOGS = F == JS;
+  __shared__ __align__(16) float4 qs[QG][32];             // a step's columns of QG queries
+  __shared__ __align__(16) float4 ql[LOGS ? QG : 1][32];  // JS: their js_row_lg2
+  __shared__ float res[QG][BR + 1];                       // the sums, query-major
+
+  const int64_t b = blockIdx.x / row_tiles;
+  const int64_t j0 = (blockIdx.x % row_tiles) * BR;
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const float* qb = q + b * cq * (int64_t)d;
+  const float* xb = rows + b * k * (int64_t)d;
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  for (int q0 = 0; q0 < cq; q0 += QG) {
+    float acc[RW][QG];
+#pragma unroll
+    for (int r = 0; r < RW; ++r)
+#pragma unroll
+      for (int i = 0; i < QG; ++i) acc[r][i] = 0.f;
+
+    for (int d0 = 0; d0 < d; d0 += BD) {
+      // the step's query columns and this warp's row columns, all loads in
+      // flight at once; columns past D and rows past K load zeros: f(0, 0)
+      // adds nothing
+      float4 sv[STAGE];
+#pragma unroll
+      for (int l = 0; l < STAGE; ++l) {
+        const int s = tid + l * NT, i = s / 32, col = d0 + 4 * (s % 32);
+        sv[l] = s < QG * 32 && q0 + i < cq && col < d
+                    ? __ldg(reinterpret_cast<const float4*>(qb + (int64_t)(q0 + i) * d + col))
+                    : zero;
+      }
+      const int col = d0 + 4 * lane;
+      float4 xv[RW], xl[RW];
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        const int64_t j = j0 + warp * RW + r;
+        xv[r] = j < k && col < d ? __ldg(reinterpret_cast<const float4*>(xb + j * d + col)) : zero;
+      }
+      __syncthreads();  // the previous step's tiles and sums are read
+#pragma unroll
+      for (int l = 0; l < STAGE; ++l) {
+        const int s = tid + l * NT;
+        if (s < QG * 32) {
+          qs[s / 32][s % 32] = sv[l];
+          if constexpr (LOGS) ql[s / 32][s % 32] = js_row_lg2_4(sv[l]);
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < RW; ++r) {
+        xl[r] = zero;
+        if constexpr (LOGS) xl[r] = js_row_lg2_4(xv[r]);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < QG; ++i) {
+        const float4 a = qs[i][lane];
+        float4 la = zero;
+        if constexpr (LOGS) la = ql[i][lane];
+#pragma unroll
+        for (int r = 0; r < RW; ++r) accumulate4<F, P>(acc[r][i], a, la, xv[r], xl[r], p);
+      }
+    }
+
+#pragma unroll
+    for (int r = 0; r < RW; ++r) {
+      const float tot = warp_reduce<F, QG>(acc[r], lane);
+      if (QG > 1 || lane == 0) res[QG > 1 ? lane : 0][warp * RW + r] = tot;
+    }
+    __syncthreads();
+    for (int s = tid; s < QG * BR; s += NT) {
+      const int i = s / BR, jj = s % BR;
+      const int64_t j = j0 + jj;
+      if (q0 + i < cq && j < k)
+        out[(b * cq + q0 + i) * k + j] = __fadd_rn(post<F>(res[i][jj], inv_p, sqrt_post), pad[b * k + j]);
+    }
+  }
+}
+
+template <int F, int P, int QG>
+int launch_batched(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq, int64_t k,
+                   int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
+  const int64_t row_tiles = (k + BatchedGeo<QG>::BR - 1) / BatchedGeo<QG>::BR;
+  const int64_t blocks = nb * row_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  elementwise_batched_kernel<F, P, QG><<<(unsigned)blocks, NT, 0, stream>>>(
+      (const float*)q, (const float*)rows, (const float*)pad, (float*)out, cq, k, d, p, inv_p, sqrt_post,
+      row_tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int F, int P>
+int launch_batched_form(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq,
+                        int64_t k, int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
+  return cq == 1 ? launch_batched<F, P, 1>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream)
+                 : launch_batched<F, P, 32>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream);
+}
+
+template <int QG>
+int put_batched_geometry(int* out) {
+  out[0] = QG, out[1] = BatchedGeo<QG>::RW, out[2] = BatchedGeo<QG>::BR, out[3] = BD;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -499,6 +722,43 @@ int tk_elementwise_geometry(int form, int lp_power, int* out) {
     case JS: return put_geometry<JS, 0>(out);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The batched epilogue: out[b, i, j] f32[B, Cq, K] for q f32[B, Cq, D],
+// rows f32[B, K, D] and pad f32[B, K]; form, lp_power, p, inv_p and
+// sqrt_post as in tk_elementwise. Launches on `stream` and returns
+// cudaGetLastError().
+int tk_elementwise_batched(int form, int lp_power, const void* q, const void* rows, const void* pad, void* out,
+                           long long nb, int cq, long long k, int d, float p, float inv_p, int sqrt_post,
+                           void* stream) {
+  if (nb <= 0 || cq <= 0 || k <= 0) return (int)cudaSuccess;
+  if (d <= 0 || d % BK != 0) return (int)cudaErrorInvalidValue;
+  if (lp_power != 0 && (form != LP || p != (float)lp_power)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case L1: return launch_batched_form<L1, 0>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, s);
+    case LINF: return launch_batched_form<LINF, 0>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, s);
+    case LP:
+      if (!(p > 0.f)) return (int)cudaErrorInvalidValue;
+      switch (lp_power) {
+        case 0: return launch_batched_form<LP, 0>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, s);
+#define TK_LP_CASE(P) \
+  case P: return launch_batched_form<LP, P>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, s);
+        TK_LP_POWERS(TK_LP_CASE)
+#undef TK_LP_CASE
+        default: return (int)cudaErrorInvalidValue;
+      }
+    case JS: return launch_batched_form<JS, 0>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The batched epilogue's tiling at Cq queries a batch item: out = {QG
+// (queries staged a pass), RW (rows a warp), BR (rows a block), BD (D
+// columns a step)}.
+int tk_elementwise_batched_geometry(int cq, int* out) {
+  if (cq <= 0) return (int)cudaErrorInvalidValue;
+  return cq == 1 ? put_batched_geometry<1>(out) : put_batched_geometry<32>(out);
 }
 
 const char* tk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

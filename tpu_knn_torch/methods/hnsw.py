@@ -91,16 +91,18 @@ def _score_pairs(space, qenc_all, n_total, corpus, ids_a, ids_b):
     """d(a_i, b_j) for per-row candidate sets: ids_a [B, C], ids_b [B, C2]
     -> [B, C, C2]. Uses each candidate's own query encoding against
     gathered corpus rows, so it is valid for every space (asymmetric
-    divergences included): one batched product (ops/distance.pair_dot)
-    for an affine-factored space, else ``space.block`` per row, vmapped
-    in row blocks (ops/graph.vmap_blocks; tpu_knn's lax.map of 512-row
-    blocks)."""
+    divergences included): the space's ``pair_block`` where it has one
+    (the sparse, string, SQFD and fusion spaces; the elementwise kernel's
+    batched epilogue for the dense spaces with an elementwise form), one
+    batched product (ops/distance.pair_dot) for an affine-factored space,
+    else ``space.block`` per row, vmapped in row blocks
+    (ops/graph.vmap_blocks; tpu_knn's lax.map of 512-row blocks)."""
     rows, pad, extra = G.gather_rows(corpus, ids_b)  # [B, C2, D]
     extra = G.inject_term(space, rows, extra)
     qe = _gather_qenc(qenc_all, ids_a.clamp(0, n_total - 1), n_total)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
     pb = getattr(space, "pair_block", None)
-    if pb is not None:  # the sparse spaces' pair scorer (ops/sparse.py)
+    if pb is not None:  # the space's own pair scorer
         vm = corpus.get("vocab_mark")
         d = pb(qe, rows, pad, extra, None if vm is None else vm.shape[0])
     elif aff is not None and rows.ndim == 3:

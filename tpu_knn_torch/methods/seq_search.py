@@ -92,14 +92,10 @@ def _densify(space, qenc: dict, data) -> dict:
 
 
 def _chunk_dists(space, qenc, data, ci: int, chunk: int, precision: str):
-    """Distances [Q, chunk] of the queries to corpus chunk ``ci``: for a
-    space with an elementwise form one launch of ops/elementwise.py's
-    distance epilogue, else ``space.block`` at ``precision``."""
-    ew = space.pass1_elementwise()
-    if ew is None:
-        return space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
-    s, e = ci * chunk, (ci + 1) * chunk
-    return EW.elementwise_dists(ew[0], qenc["q"], data.vecs[s:e], data.extra["pad"][s:e], ew[1])
+    """Distances [Q, chunk] of the queries to corpus chunk ``ci``:
+    ``space.block`` at ``precision`` (for a space with an elementwise form
+    one launch of ops/elementwise.py's distance epilogue)."""
+    return space.block(qenc, space.slice_data(data, ci * chunk, chunk), precision)
 
 
 def _knn_device(space, qenc, data, k: int, chunk: int, precision: str):

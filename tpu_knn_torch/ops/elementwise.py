@@ -1,11 +1,12 @@
-"""The exact scan of the spaces with no affine form: fused elementwise
-distance with a 128-row group-min epilogue or a distance epilogue.
+"""The spaces with no affine form: fused elementwise distance with a
+128-row group-min epilogue, a distance epilogue or a batched epilogue.
 
 Counterpart of what XLA fuses in tpu_knn's ``pass1_jnp``
 (tpu_knn/methods/seq_search.py:233, a ``lax.scan`` of
 ``elementwise_blocked`` blocks, tpu_knn/ops/distance.py:205, each reduced
-to its 128-row group mins) and in its single-pass and range scans of the
-same spaces. On a CUDA tensor each wrapper launches the hand-written
+to its 128-row group mins), in its single-pass and range scans of the
+same spaces and in every ``space.block`` of them, vmapped or not. On a
+CUDA tensor each wrapper launches the hand-written
 kernel of ``csrc/groupmin_elementwise.cu`` on the current stream; on a CPU
 tensor it runs the plain PyTorch version, which is also what the kernel is
 held against on the card:
@@ -20,10 +21,14 @@ held against on the card:
   ``jsmetr`` sqrt(max(``js_div_blocked``, 0))             the JS metrics
   ========== ============================================ ================
 
-Both epilogues add ``pad`` (0, or 1e30 on padding rows) to each distance:
-:func:`elementwise_groupmin` returns the group mins f32[Q, N/128] (pass 1,
-one launch over the whole corpus), :func:`elementwise_dists` the
-distances f32[Q, N] (one launch a corpus slice). ``lp`` at a ``p`` of
+Every epilogue adds ``pad`` (0, or 1e30 on padding rows) to each
+distance: :func:`elementwise_groupmin` returns the group mins f32[Q, N/128]
+(pass 1, one launch over the whole corpus), :func:`elementwise_dists` the
+distances f32[Q, N] (one launch a corpus slice: the spaces' ``block``),
+:func:`elementwise_batched` the distances f32[B, Cq, K] of each batch
+item's Cq queries against its own K rows (one launch a batch: the spaces'
+``gathered_block``, Cq = 1, for pass 2 and the beam, and ``pair_block``,
+Cq = C, for the construction heuristic's pairs). ``lp`` at a ``p`` of
 :data:`LP_POWERS` runs an instance of its own, a product chain; at any
 other ``p`` it runs ex2(p lg2 |a - b|) on the card's special-function unit
 (:func:`lp_power` picks). The source is built with the group-min kernels
@@ -44,6 +49,8 @@ LIB = "groupmin_elementwise"
 #: the kernel's forms, in its numbering; ops/groupmin.py's ``launches``
 #: counts each as ``elementwise_{epilogue}_{kernel form}``
 KERNEL_FORMS = ("l1", "linf", "lp", "js")
+#: the kernel's epilogues, as ``launches`` names them
+EPILOGUES = ("groupmin", "dists", "batched")
 #: every form a space may name -> (kernel form, sqrt post)
 FORMS = {"l1": (0, False), "linf": (1, False), "lp": (2, False), "js": (3, False), "jsmetr": (3, True)}
 #: D multiple the kernel takes: the caller appends zero columns up to it
@@ -76,13 +83,13 @@ def kernel_form(form: str) -> str:
 
 def launch_key(epilogue: str, form: str) -> str:
     """The key of ops/groupmin.py's ``launches`` that counts ``form``'s
-    launches of ``epilogue`` ("groupmin" or "dists")."""
+    launches of ``epilogue`` (one of :data:`EPILOGUES`)."""
     return f"elementwise_{epilogue}_{kernel_form(form)}"
 
 
 def distances(form: str, q: torch.Tensor, x: torch.Tensor, p: float | None = None) -> torch.Tensor:
-    """The plain distances f32[Q, N] of ``form`` (no padding term): the
-    spaces' block and the kernel's plain version share them."""
+    """The plain distances f32[Q, N] of ``form`` (no padding term), the
+    arithmetic every plain version of the kernel shares."""
     if form == "l1":
         return D.l1_blocked(q, x)
     if form == "linf":
@@ -114,16 +121,36 @@ def elementwise_groupmin_reference(form, q, x, pad, p=None, chunk_bytes: int = 1
     return torch.cat(outs, dim=1) if outs else q.new_empty((qn, 0))
 
 
-def _check_contract(fn: str, form: str, q, x, pad, p, groupmin: bool) -> None:
+def elementwise_batched_reference(form, q, rows, pad, p=None) -> torch.Tensor:
+    """Plain version of the batched epilogue: :func:`distances` of each
+    batch item's queries against its own rows, ``torch.vmap``-ped over the
+    batch (tpu_knn's ``jax.vmap`` of ``space.block``) in blocks of at most
+    ``block_elems`` [B', Cq, K, D] elements, + pad."""
+    nb, cq, d = q.shape
+    k = rows.shape[1]
+    if nb * cq * k == 0:
+        return q.new_zeros((nb, cq, k))
+    fn = torch.vmap(lambda qq, xx: distances(form, qq, xx, p))
+    step = max(1, D.block_elems(q.device) // (cq * k * max(d, 1)))
+    outs = [fn(q[s:s + step], rows[s:s + step]) for s in range(0, nb, step)]
+    return (outs[0] if len(outs) == 1 else torch.cat(outs)) + pad[:, None, :]
+
+
+def _check_contract(fn: str, form: str, q, x, pad, p, epilogue: str) -> None:
     if form not in FORMS:
         raise ValueError(f"{fn}: unknown form {form!r}; known: {list(FORMS)}")
-    if q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1] or pad.shape != (x.shape[0],):
+    if epilogue == "batched":
+        if (q.ndim != 3 or x.ndim != 3 or q.shape[0] != x.shape[0] or q.shape[2] != x.shape[2]
+                or pad.shape != x.shape[:2]):
+            raise ValueError(f"{fn} needs q [B, Cq, D], rows [B, K, D] and pad [B, K]; got "
+                             f"{tuple(q.shape)}, {tuple(x.shape)}, {tuple(pad.shape)}")
+    elif q.ndim != 2 or x.ndim != 2 or q.shape[1] != x.shape[1] or pad.shape != (x.shape[0],):
         raise ValueError(f"{fn} needs q [Q, D], x [N, D] and pad [N]; got "
                          f"{tuple(q.shape)}, {tuple(x.shape)}, {tuple(pad.shape)}")
     for name, t in (("q", q), ("x", x), ("pad", pad)):
         if t.dtype != torch.float32 or t.device != q.device:
             raise ValueError(f"{fn}: {name} must be float32 on {q.device}; got {t.dtype} on {t.device}")
-    if groupmin and x.shape[0] % GROUP:
+    if epilogue == "groupmin" and x.shape[0] % GROUP:
         raise ValueError(f"{fn} needs n % {GROUP} == 0; got n={x.shape[0]}")
     if form == "lp" and not (p is not None and p > 0):
         raise ValueError(f"{fn}: form 'lp' needs p > 0; got {p!r}")
@@ -139,6 +166,11 @@ def _lib():
     lib.tk_elementwise.restype = ctypes.c_int
     lib.tk_elementwise_geometry.argtypes = [ctypes.c_int, ctypes.c_int, ip]
     lib.tk_elementwise_geometry.restype = ctypes.c_int
+    lib.tk_elementwise_batched.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64, ctypes.c_int, i64,
+                                           ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
+    lib.tk_elementwise_batched.restype = ctypes.c_int
+    lib.tk_elementwise_batched_geometry.argtypes = [ctypes.c_int, ip]
+    lib.tk_elementwise_batched_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -153,31 +185,47 @@ def geometry(form: str, p: float | None = None) -> dict:
     return dict(zip(("tq", "tr", "ku", "bq"), out))
 
 
+def batched_geometry(cq: int) -> dict:
+    """The batched epilogue's tiling at ``cq`` queries a batch item: queries
+    staged a pass, rows a warp, rows a block, D columns a step."""
+    out = (ctypes.c_int * 4)()
+    err = _lib().tk_elementwise_batched_geometry(cq, out)
+    if err != 0:
+        raise RuntimeError(f"groupmin_elementwise: no batched geometry at cq={cq} ({err})")
+    return dict(zip(("qg", "rw", "br", "bd"), out))
+
+
 def _launch(epilogue: str, form: str, q, x, pad, p) -> torch.Tensor:
     """One launch of the kernel on a CUDA tensor; raises if it is refused."""
     for name, t in (("q", q), ("x", x), ("pad", pad)):
         if not t.is_contiguous():
             raise ValueError(f"elementwise_{epilogue}: {name} must be contiguous")
-    d = q.shape[1]
+    d = q.shape[-1]
     if d % D_MULTIPLE or d == 0:  # a copy here would copy the corpus every batch
         raise ValueError(f"elementwise_{epilogue}: the kernel needs D a positive multiple of {D_MULTIPLE}; got "
                          f"D={d} (append zero columns to q and x once: they change no distance of any form)")
     for name, t in (("q", q), ("x", x)):
         if t.data_ptr() % 16:  # the kernel loads 16-byte vectors
             raise ValueError(f"elementwise_{epilogue}: {name} is not 16-byte aligned")
-    qn, n = q.shape[0], x.shape[0]
-    shape = (qn, n // GROUP) if epilogue == "groupmin" else (qn, n)
+    if epilogue == "batched":  # q [B, Cq, D], x [B, K, D]
+        shape = (q.shape[0], q.shape[1], x.shape[1])
+    else:
+        shape = (q.shape[0], x.shape[0] // GROUP if epilogue == "groupmin" else x.shape[0])
     out = torch.empty(shape, dtype=torch.float32, device=q.device)
-    if qn == 0 or n == 0:
+    if q.numel() == 0 or x.numel() == 0:
         return out
     kform, sqrt_post = FORMS[form]
     pf = float(p) if form == "lp" else 0.0
+    tail = (pf, 1.0 / pf if pf else 0.0, int(sqrt_post))
     lib = _lib()
+    ptrs = (q.data_ptr(), x.data_ptr(), pad.data_ptr(), out.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.tk_elementwise(kform, lp_power(pf), int(epilogue == "groupmin"), q.data_ptr(), x.data_ptr(),
-                                 pad.data_ptr(), out.data_ptr(), qn, n, d, pf, 1.0 / pf if pf else 0.0,
-                                 int(sqrt_post), stream)
+        if epilogue == "batched":
+            err = lib.tk_elementwise_batched(kform, lp_power(pf), *ptrs, *shape, d, *tail, stream)
+        else:
+            err = lib.tk_elementwise(kform, lp_power(pf), int(epilogue == "groupmin"), *ptrs, *shape[:1],
+                                     x.shape[0], d, *tail, stream)
     if err != 0:
         msg = lib.tk_error_string(err).decode()
         raise RuntimeError(f"groupmin_elementwise {epilogue} {form} kernel launch failed: {msg} ({err})")
@@ -190,7 +238,7 @@ def elementwise_groupmin(form: str, q, x, pad, p=None) -> torch.Tensor:
 
     A CPU tensor runs :func:`elementwise_groupmin_reference`. A CUDA tensor
     launches the kernel or raises; it never falls back."""
-    _check_contract("elementwise_groupmin", form, q, x, pad, p, groupmin=True)
+    _check_contract("elementwise_groupmin", form, q, x, pad, p, "groupmin")
     if q.device.type == "cpu":
         return elementwise_groupmin_reference(form, q, x, pad, p)
     if q.device.type != "cuda":
@@ -203,9 +251,23 @@ def elementwise_dists(form: str, q, x, pad, p=None) -> torch.Tensor:
 
     A CPU tensor runs :func:`elementwise_dists_reference`. A CUDA tensor
     launches the kernel or raises; it never falls back."""
-    _check_contract("elementwise_dists", form, q, x, pad, p, groupmin=False)
+    _check_contract("elementwise_dists", form, q, x, pad, p, "dists")
     if q.device.type == "cpu":
         return elementwise_dists_reference(form, q, x, pad, p)
     if q.device.type != "cuda":
         raise ValueError(f"elementwise_dists: unsupported device {q.device}")
     return _launch("dists", form, q, x, pad, p)
+
+
+def elementwise_batched(form: str, q, rows, pad, p=None) -> torch.Tensor:
+    """Distances f32[B, Cq, K] of ``form`` plus ``pad``: batch item b's Cq
+    queries ``q[b]`` against its own K rows ``rows[b]``.
+
+    A CPU tensor runs :func:`elementwise_batched_reference`. A CUDA tensor
+    launches the kernel or raises; it never falls back."""
+    _check_contract("elementwise_batched", form, q, rows, pad, p, "batched")
+    if q.device.type == "cpu":
+        return elementwise_batched_reference(form, q, rows, pad, p)
+    if q.device.type != "cuda":
+        raise ValueError(f"elementwise_batched: unsupported device {q.device}")
+    return _launch("batched", form, q, rows, pad, p)

@@ -38,15 +38,17 @@ Every sort is stable and ties go to the lowest index (``lax.sort``,
 them as equal; no ported space returns -0.0 distances except negdotprod
 on exactly orthogonal rows.
 
-A space with no affine form (L1, Jensen-Shannon, Renyi, ...) is scored
-per query: ``space.block`` of one query against its own gathered rows,
-vmapped over the batch (:func:`score_gathered`), as tpu_knn's ``jax.vmap``
-does. The batch runs in row blocks whose intermediates hold at most
-ops/distance.block_elems elements; every row is scored alone, so the
-blocks change no result. A sparse space scores gathered candidates with
-its own ``gathered_block`` (ops/sparse.py); its densified query table is
-attached once per search by :func:`densify_queries`, where tpu_knn leaves
-the hoisting to XLA.
+A space with no affine form is scored per query against its own gathered
+rows (:func:`score_gathered`), as tpu_knn's ``jax.vmap`` of ``space.block``
+does: the dense spaces with an elementwise form (L1, LINF, LP,
+Jensen-Shannon) by their ``gathered_block``, one launch of the elementwise
+kernel's batched epilogue (ops/elementwise.py); any other (Renyi) by
+``space.block`` vmapped over the batch, in row blocks whose intermediates
+hold at most ops/distance.block_elems elements (every row is scored alone,
+so the blocks change no result). A sparse space scores gathered candidates
+with its own ``gathered_block`` (ops/sparse.py); its densified query table
+is attached once per search by :func:`densify_queries`, where tpu_knn
+leaves the hoisting to XLA.
 """
 
 from __future__ import annotations
@@ -240,9 +242,11 @@ def score_gathered(space, qenc: dict, rows, pad, extra_sl: dict) -> torch.Tensor
 
     Spaces with an affine factored form (space.pass1_affine) take one
     batched f32 matmul (exact for int8 rows, ops/distance.batched_dot) +
-    the exact post-transform. Any other space runs ``space.block`` of each
-    query against its own K rows, vmapped over the batch (never a query
-    against another query's rows)."""
+    the exact post-transform. A space with a ``gathered_block`` (the sparse,
+    string, SQFD and fusion spaces, and the dense spaces with an elementwise
+    form) takes it. Any other space runs ``space.block`` of each query
+    against its own K rows, vmapped over the batch (never a query against
+    another query's rows)."""
     extra_sl = inject_term(space, rows, extra_sl)
     aff = space.pass1_affine() if hasattr(space, "pass1_affine") else None
     if aff is not None and rows.ndim == 3:
@@ -255,7 +259,7 @@ def score_gathered(space, qenc: dict, rows, pad, extra_sl: dict) -> torch.Tensor
             s = s + sx * extra_sl["x_term"]
         return space.pass1_post(s, qenc) + pad
     gb = getattr(space, "gathered_block", None)
-    if gb is not None:  # the sparse spaces' own scorer (ops/sparse.py)
+    if gb is not None:  # the space's own scorer (ops/sparse.py; the elementwise kernel's batched epilogue)
         return gb(qenc, rows, pad, extra_sl)
 
     b, kc = rows.shape[0], rows.shape[1]

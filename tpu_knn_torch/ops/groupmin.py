@@ -82,7 +82,8 @@ _SCRATCH_BYTES = {
 
 #: the elementwise kernel's instances (ops/elementwise.py), by epilogue and
 #: kernel form, as its launches are counted
-ELEMENTWISE = tuple(f"elementwise_{e}_{f}" for e in ("groupmin", "dists") for f in ("l1", "linf", "lp", "js"))
+ELEMENTWISE = tuple(f"elementwise_{e}_{f}" for e in ("groupmin", "dists", "batched")
+                    for f in ("l1", "linf", "lp", "js"))
 #: kernel launches (CUDA tensors only): :func:`fused_groupmin`'s per tier,
 #: ops/elementwise.py's per instance
 launches = dict.fromkeys(TIERS + ELEMENTWISE, 0)

@@ -88,7 +88,11 @@ class DenseSpace(Space):
     """Shared encode/slice machinery for dense float spaces.
 
     Subclasses define ``_transform_x/_transform_q`` (element transforms),
-    ``_term_x/_term_q`` (per-row scalar terms) and ``_block_impl``.
+    ``_term_x/_term_q`` (per-row scalar terms) and ``_block_impl``; a space
+    with an elementwise form (``pass1_elementwise``) scores through
+    ops/elementwise.py instead: ``block`` with the kernel's distance
+    epilogue, ``gathered_block`` and ``pair_block`` with its batched
+    epilogue, one launch each on the card.
     """
 
     data_kind = DataKind.DENSE
@@ -162,8 +166,35 @@ class DenseSpace(Space):
         return xc
 
     def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
+        ew = self.pass1_elementwise()
+        if ew is not None:  # the kernel adds the pad
+            return E.elementwise_dists(ew[0], qenc["q"].contiguous(), xc["x"], xc["pad"], ew[1])
         d = self._block_impl(qenc, xc, precision)
         return d + xc["pad"][None, :]
+
+    # ops/graph.score_gathered and methods/hnsw._score_pairs take these
+    # scorers where a space has them; None leaves them their own routes
+
+    @property
+    def gathered_block(self):
+        """Distances f32[B, K] of query b to its own gathered rows [B, K, D]
+        with pad [B, K], for an elementwise space; else None."""
+        return None if self.pass1_elementwise() is None else self._gathered_elementwise
+
+    @property
+    def pair_block(self):
+        """Distances f32[B, C, C2] of per-row candidate encodings 'q'
+        [B, C, D] to gathered rows [B, C2, D] with pad [B, C2], for an
+        elementwise space; else None."""
+        return None if self.pass1_elementwise() is None else self._pair_elementwise
+
+    def _gathered_elementwise(self, qenc, rows, pad, extra) -> torch.Tensor:
+        form, p = self.pass1_elementwise()
+        return E.elementwise_batched(form, qenc["q"].contiguous()[:, None, :], rows, pad, p)[:, 0, :]
+
+    def _pair_elementwise(self, qe, rows, pad, extra, v_pad=None) -> torch.Tensor:
+        form, p = self.pass1_elementwise()
+        return E.elementwise_batched(form, qe["q"].contiguous(), rows, pad, p)
 
 
 # ---------------- Lp family ----------------
@@ -171,9 +202,8 @@ class DenseSpace(Space):
 
 class LpSpaceBase(DenseSpace):
     """Lp norms (reference: space_lp.h:49-67, distcomp_lp.cc). p == 2 goes
-    through the matmul norm identity; p in {1, inf} and generic p take the
-    blocked elementwise path, which has no affine form: the exact scan's
-    pass 1 is then a block scan and graph scoring goes per query."""
+    through the matmul norm identity; p in {1, inf} and generic p are
+    elementwise forms with no affine one (DenseSpace's kernel scorers)."""
 
     def __init__(self, params: Params | None = None, p: float = 2.0, device="cpu"):
         super().__init__(params, device)
@@ -206,14 +236,9 @@ class LpSpaceBase(DenseSpace):
             return None
         return {"q": rows, "q_term": torch.sum(rows * rows, dim=-1)}
 
-    def _block_impl(self, qenc, xc, precision):
-        if self.p == 2.0:
-            d2 = D.factored(
-                qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision
-            )
-            return torch.sqrt(torch.clamp_min(d2, 0.0))
-        form, p = self.pass1_elementwise()
-        return E.distances(form, qenc["q"], xc["x"], p)
+    def _block_impl(self, qenc, xc, precision):  # p == 2; the others are elementwise
+        d2 = D.factored(qenc["q"], xc["x"], qenc["q_term"], xc["x_term"], scale=-2.0, precision=precision)
+        return torch.sqrt(torch.clamp_min(d2, 0.0))
 
 
 @register_space("l2")
@@ -477,15 +502,11 @@ class ISFastRQ(ItakuraSaitoSpace):
 
 
 class JSDivSpace(DenseSpace):
-    """JS divergence, blocked elementwise (not matmul-factorable because of
+    """JS divergence, an elementwise form (not matmul-factorable because of
     log(q+x); reference: distcomp_js.cc)."""
 
     def pass1_elementwise(self):
         return ("js", None)
-
-    def _block_impl(self, qenc, xc, precision):
-        form, _ = self.pass1_elementwise()  # "js", or "jsmetr" for the metric
-        return E.distances(form, qenc["q"], xc["x"])
 
 
 @register_space("jsdivslow")  # C++ registry spelling (space_js.h:29)
@@ -712,6 +733,3 @@ class DummySpace(DenseSpace):
 
     def pass1_elementwise(self):
         return ("l1", None)
-
-    def _block_impl(self, qenc, xc, precision):
-        return E.distances("l1", qenc["q"], xc["x"])
