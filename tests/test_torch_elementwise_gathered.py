@@ -133,8 +133,9 @@ def test_batched_kernel_route_checks(bad, match):
 @pytest.mark.parametrize("form,p,power", [("l1", None, 0), ("lp", 3.0, 3), ("lp", 0.7, 0), ("jsmetr", None, 0)])
 def test_batched_launch_passes_shapes_and_parameters(monkeypatch, form, p, power):
     """What _launch hands tk_elementwise_batched (a spy in place of ``_lib``): the kernel form,
-    LP's power, the four pointers, B, Cq, K and D, p and 1/p, the sqrt post, the stream; and one
-    count on the batched key of the form."""
+    LP's power, the four pointers, B, Cq, K and D, p and 1/p, the sqrt post and the stream, at Cq
+    = 5 (the pair kernel, which tiles itself) and Cq = 1 (the gathered kernel); and one count on
+    the batched key of the form a launch."""
     calls = []
 
     class Spy:
@@ -146,16 +147,17 @@ def test_batched_launch_passes_shapes_and_parameters(monkeypatch, form, p, power
     monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: SimpleNamespace(cuda_stream=78))
     monkeypatch.setattr(GM, "launches", dict.fromkeys(GM.launches, 0))
-    q, rows, pad = torch.zeros(6, 5, 16), torch.zeros(6, 300, 16), torch.zeros(6, 300)
-    out = EW._launch("batched", form, q, rows, pad, p)
-    assert out.shape == (6, 5, 300)
-    (args,) = calls
-    kform, got_power, qp, xp, pp, op, nb, cq, k, d, pf, inv_p, sqrt_post, stream = args
-    assert (kform, got_power) == (EW.FORMS[form][0], power)
-    assert (qp, xp, pp, op) == (q.data_ptr(), rows.data_ptr(), pad.data_ptr(), out.data_ptr())
-    assert (nb, cq, k, d, sqrt_post, stream) == (6, 5, 300, 16, int(form == "jsmetr"), 78)
-    assert (pf, inv_p) == ((p, 1.0 / p) if form == "lp" else (0.0, 0.0))
-    assert GM.launches == {key: int(key == EW.launch_key("batched", form)) for key in GM.launches}
+    for cq in (5, 1):
+        q, rows, pad = torch.zeros(6, cq, 16), torch.zeros(6, 300, 16), torch.zeros(6, 300)
+        out = EW._launch("batched", form, q, rows, pad, p)
+        assert out.shape == (6, cq, 300)
+        kform, got_power, qp, xp, pp, op, nb, got_cq, k, d, pf, inv_p, sqrt_post, stream = calls[-1]
+        assert (kform, got_power) == (EW.FORMS[form][0], power)
+        assert (qp, xp, pp, op) == (q.data_ptr(), rows.data_ptr(), pad.data_ptr(), out.data_ptr())
+        assert (nb, got_cq, k, d, sqrt_post, stream) == (6, cq, 300, 16, int(form == "jsmetr"), 78)
+        assert (pf, inv_p) == ((p, 1.0 / p) if form == "lp" else (0.0, 0.0))
+    assert len(calls) == 2
+    assert GM.launches == {key: 2 * int(key == EW.launch_key("batched", form)) for key in GM.launches}
 
 
 # ---- JS at the edges of f32 ----

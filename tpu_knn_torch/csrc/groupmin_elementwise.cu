@@ -98,6 +98,7 @@
 #include <stdint.h>
 
 #include "min_nan.cuh"
+#include "pair_tiling.h"
 
 namespace {
 
@@ -466,35 +467,63 @@ int put_geometry(int* out) {
 // q f32[B, Cq, D], rows f32[B, K, D], pad f32[B, K]: what tpu_knn computes by
 // vmapping space.block over the batch (ops/graph.py score_gathered, pass 2
 // and the beam, Cq = 1; methods/hnsw.py _score_pairs, the heuristic's and
-// sw-graph's pairs, Cq = C). No Pallas kernel stands behind it either.
+// sw-graph's pairs, Cq = C). No Pallas kernel stands behind it either. Two
+// kernels, by Cq.
 //
-// What bounds it: with Cq = 1 the bytes, each gathered row read once and
-// used by one query (pass 2 at Q = 2048 reads 1.6 GB of rows for 0.4 G
-// element pairs); with Cq in the tens, the form's work, as the other
-// epilogues. Design: a warp a row, its 32 lanes over 128 columns of D (one
+// Cq = 1, the gathered form: the bytes bound it, each gathered row read once
+// and used by one query (pass 2 at Q = 2048 reads 1.6 GB of rows for 0.4 G
+// element pairs). A warp a row, its 32 lanes over 128 columns of D (one
 // 16-byte load each), so a row is read in full 512-byte lines. A block owns
-// one batch item and BR rows (RW a warp), and walks D in steps of 128 with
-// the step's columns of QG queries (and, for JS, their staged logs) in
-// shared memory, its loads in flight with the rows' loads. With Cq = 1
-// (QG = 1) each lane keeps one sum a row and a warp's shuffle reduction
-// ends it. With Cq > 1 (QG = 32) each lane keeps the sums of 32 queries
-// against its row and one reduce-scatter over the warp (31 shuffles for 32
-// sums) leaves on lane l the sum of query l:
-// five shuffles a (query, row) pair would cost more than the pair's own
-// 128 / 32 x 2 instructions at D = 128. Results go through shared memory so
-// that a query's BR distances are stored side by side. JS always takes the
-// guarded pair (a negative or NaN value anywhere is handled), its row logs
-// taken once a row and step, its query logs once a staged step.
+// one batch item and BR = 32 rows (4 a warp) and walks D in steps of 128 with
+// the step's query columns (and, for JS, their staged logs) in shared memory,
+// its loads in flight with the rows' loads. Each lane keeps one sum a row and
+// a warp's shuffle reduction ends it; the sums go through shared memory so
+// that the BR distances are stored side by side. JS always takes the guarded
+// pair (a negative or NaN value anywhere is handled), its row logs taken once
+// a row and step, its query logs once a staged step.
+//
+// Cq > 1, the pair form (the construction heuristic's C x C pairs, sw-graph's
+// patches): an item's element pairs are Cq x K x D against (Cq + K) x D
+// values read, so the form's work bounds it where C is large (the forward
+// heuristic's Cq = K = 108 at B = 1024), and the bytes where C is small and B
+// large (the reverse shrink's 24 and 40 at B = 16384 read 0.44 and 0.78 GB,
+// and their arithmetic a pair is about as long as its share of the bytes).
+// The design is the group-min kernel's, cut into per-item tiles: each thread
+// keeps a 4 x 4 register tile of (query, row) sums of one batch item over all
+// of D, summing k in sequence (no sum crosses lanes), and reads its operands
+// from double-buffered shared-memory stages of 16 columns, each 16-byte load
+// feeding 4 pairs. An item's pairs are cut into qt x rt block tiles of ny x
+// nx threads (qt ny 4 >= Cq, rt nx 4 >= K); a block holds g items' tiles side
+// by side, so that 24 or 40 fill a block (one tile an item: no vector read
+// twice), and 108 is 1 x 3 blocks of 27 x 9 threads, every pair real.
+// pair_tiling (pair_tiling.h) picks the split and g from Cq and K, costing
+// each candidate by the pair slots its threads take against the bytes its
+// item reads, so that 89-98% of the pairs computed at 24, 40 and 108 are real
+// and every thread issues at most 4 loads a stage; threads past the item
+// tiles only load. (An 8 x 8 tile, as the group-min kernel's, lost on the card at every
+// shape and form but L1 at 108 x 108, where it won by little: its coarser
+// tiles waste more pairs.) The next stage's 16-byte loads fly
+// while this one computes, and 16 columns a stage keep more bytes in flight
+// for the byte-bound shapes; stage layout [vector group][k][4 vectors], a
+// group's k steps padded to 17 so that neighbouring threads' groups fall on
+// different banks. JS's logs are taken as a stage is stored, and a stage
+// holding a negative or NaN value takes the guarded pair, one block-wide OR
+// at its barrier, as in the group-min kernel. The per-pair arithmetic is
+// accumulate<F, P, SIGNED> and post<F>, so only the order of the f32 sums
+// differs from the other
+// epilogues; LINF's max is the same in any order.
 
-// QG: queries staged a pass (1 for Cq == 1, else 32: one a lane after the
-// reduce-scatter); RW: rows a warp keeps; BR: rows a block
+// The gathered kernel's tiling at QG = 1 query staged a pass: RW rows a
+// warp, BR rows a block. QG stays a template argument with its one value,
+// and the kernel the text its times were measured with: written out with
+// QG = 1, nvcc emitted fewer instructions for L1 (a different kernel, to be
+// measured on its own)
 template <int QG>
 struct BatchedGeo {
-  static constexpr int RW = QG == 1 ? 4 : 1;
+  static_assert(QG == 1, "the pair form has its own kernel");
+  static constexpr int RW = 4;
   static constexpr int BR = (NT / 32) * RW;
-  // blocks an SM: QG = 32 keeps 32 sums a lane and its loads' latency is
-  // hidden by more blocks (at 2 blocks and RW = 2 ptxas spilled them)
-  static constexpr int MIN_BLOCKS = QG == 1 ? 2 : 3;
+  static constexpr int MIN_BLOCKS = 2;
 };
 constexpr int BD = 128;  // D columns a step: 32 lanes x 4
 
@@ -507,41 +536,14 @@ __device__ __forceinline__ float combine(float a, float b) {
   }
 }
 
-// One halving step of the reduce-scatter: of its H pairs (v[i], v[i + H]) a
-// lane keeps the half on its side of bit H, adds the partner's copy of it,
-// and stores the sum in v[i]. H is a template argument so that every index
-// is a constant and v stays in registers.
-template <int F, int H>
-__device__ __forceinline__ void halve(float (&v)[32], int lane) {
-  const bool upper = lane & H;
-#pragma unroll
-  for (int i = 0; i < H; ++i) {
-    const float lo = v[i], hi = v[i + H];
-    const float send = upper ? lo : hi;
-    const float keep = upper ? hi : lo;
-    v[i] = combine<F>(keep, __shfl_xor_sync(0xffffffffu, send, H));
-  }
-}
-
-// The reduction over the warp's 32 lanes of v[i] for i = lane % N (N = 1:
-// every lane gets the reduction of v[0]; N = 32: lane l gets that of v[l],
-// after halving steps at H = 16, 8, 4, 2, 1).
+// The reduction over the warp's 32 lanes of v[0]: every lane gets it
 template <int F, int N>
 __device__ __forceinline__ float warp_reduce(float (&v)[N], int lane) {
-  static_assert(N == 1 || N == 32, "one sum, or one a lane");
-  if constexpr (N == 1) {
-    float r = v[0];
+  static_assert(N == 1, "one sum");
+  float r = v[0];
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) r = combine<F>(r, __shfl_xor_sync(0xffffffffu, r, off));
-    return r;
-  } else {
-    halve<F, 16>(v, lane);
-    halve<F, 8>(v, lane);
-    halve<F, 4>(v, lane);
-    halve<F, 2>(v, lane);
-    halve<F, 1>(v, lane);
-    return v[0];
-  }
+  for (int off = 16; off > 0; off >>= 1) r = combine<F>(r, __shfl_xor_sync(0xffffffffu, r, off));
+  return r;
 }
 
 __device__ __forceinline__ float4 js_row_lg2_4(float4 v) {
@@ -642,6 +644,179 @@ elementwise_batched_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+// One stage's pairs into acc: at each of its BK k steps (unrolled: the loads'
+// offsets are immediates) the thread's TQ queries (a, and JS's La) against
+// its TR rows (b, Lb). qv, xv: the thread's vector groups in the stage's
+// values; ql, xl: the same in JS's logs.
+template <int F, int P, bool SIGNED>
+__device__ __forceinline__ void pair_stage(float (&acc)[PAIR_TQ][PAIR_TR], const float4* qv, const float4* xv,
+                                           const float4* ql, const float4* xl, float p) {
+  constexpr bool LOGS = F == JS;
+#pragma unroll
+  for (int kk = 0; kk < PAIR_BK; ++kk) {
+    const float4 t = qv[kk], u = xv[kk];
+    const float a[PAIR_TQ] = {t.x, t.y, t.z, t.w}, b[PAIR_TR] = {u.x, u.y, u.z, u.w};
+    float la[PAIR_TQ] = {}, lb[PAIR_TR] = {};
+    if constexpr (LOGS) {
+      const float4 v = ql[kk], w = xl[kk];
+      la[0] = v.x, la[1] = v.y, la[2] = v.z, la[3] = v.w;
+      lb[0] = w.x, lb[1] = w.y, lb[2] = w.z, lb[3] = w.w;
+    }
+#pragma unroll
+    for (int i = 0; i < PAIR_TQ; ++i)
+#pragma unroll
+      for (int j = 0; j < PAIR_TR; ++j) accumulate<F, P, SIGNED>(acc[i][j], a[i], la[i], b[j], lb[j], p);
+  }
+}
+
+// blocks an SM: held to 85 registers so that three fit (left free, ptxas
+// took more, two blocks fit, and the byte-bound shapes ran slower)
+template <int F, int P>
+__global__ void __launch_bounds__(PAIR_THREADS, 3)
+elementwise_pair_kernel(const float* __restrict__ q, const float* __restrict__ rows,
+                        const float* __restrict__ pad, float* __restrict__ out, int64_t nb, int cq, int64_t k,
+                        int d, float p, float inv_p, int sqrt_post, PairTiling t) {
+  constexpr int TQ = PAIR_TQ, TR = PAIR_TR, BK = PAIR_BK, LOADS = PAIR_LOADS;
+  constexpr int CH = BK / 4;  // 16-byte chunks of a vector in one stage
+  constexpr int KS = BK + 1;  // float4s a vector group takes in a stage
+  constexpr bool LOGS = F == JS;
+  // [stage][vector group][KS] float4s: element (vector v, column c) of a
+  // stage is component v % 4 of float4 c of group v / 4; queries' groups
+  // first, item by item, then the rows'
+  extern __shared__ float4 pair_smem[];
+  const int ctq = t.ny * TQ, ctr = t.nx * TR;  // an item's query and row slots a block
+  const int qvecs = t.g * ctq, groups = (qvecs + t.g * ctr) / 4;
+  float4* const vals = pair_smem;
+  float4* const logs = pair_smem + 2 * groups * KS;  // JS: js_row_lg2 of vals
+
+  const int64_t tiles = (int64_t)t.qt * t.rt;
+  const int64_t b0 = blockIdx.x / tiles * t.g;
+  const int tile = (int)(blockIdx.x % tiles);
+  const int64_t q0 = (int64_t)(tile / t.rt) * ctq;
+  const int64_t r0 = (int64_t)(tile % t.rt) * ctr;
+  const int tid = threadIdx.x;
+
+  // loader: slot s of a stage is chunk s % CH of vector s / CH, spread over
+  // every thread of the block
+  const float* src[LOADS];  // the slot's vector at its chunk, or nullptr past the batch, Cq or K
+  int dst[LOADS];           // the float offset of its first element in stage 0, or -1: no slot
+#pragma unroll
+  for (int l = 0; l < LOADS; ++l) {
+    const int s = tid + l * (int)blockDim.x;
+    const int v = s / CH, c = s % CH;
+    const bool is_q = v < qvecs;
+    const int vv = is_q ? v : v - qvecs;  // the vector within its side
+    const int per = is_q ? ctq : ctr;
+    const int64_t b = b0 + vv / per, idx = (is_q ? q0 : r0) + vv % per;
+    const bool has = s < groups * 4 * CH;
+    const bool live = has && b < nb && idx < (is_q ? (int64_t)cq : k);
+    src[l] = live ? (is_q ? q + (b * cq + idx) * d : rows + (b * k + idx) * d) + 4 * c : nullptr;
+    const int grp = (is_q ? 0 : qvecs / 4) + vv / 4;
+    dst[l] = has ? (grp * KS + 4 * c) * 4 + vv % 4 : -1;
+  }
+  float4 v[LOADS];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      const int col = k0 + 4 * ((tid + l * (int)blockDim.x) % CH);
+      v[l] = src[l] != nullptr && col < d ? __ldg(reinterpret_cast<const float4*>(src[l] + k0))
+                                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  };
+  int signed_vals = 0;  // JS: this thread staged a negative or NaN value
+  auto stage = [&](int buf) {
+    float* const sv = reinterpret_cast<float*>(vals + buf * groups * KS);
+    float* const sl = reinterpret_cast<float*>(logs + buf * groups * KS);
+    if constexpr (LOGS) signed_vals = 0;
+#pragma unroll
+    for (int l = 0; l < LOADS; ++l) {
+      if (dst[l] < 0) continue;
+      const float e[4] = {v[l].x, v[l].y, v[l].z, v[l].w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sv[dst[l] + 4 * c] = e[c];  // column + c: the next float4 of the group
+      if constexpr (LOGS) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          sl[dst[l] + 4 * c] = js_row_lg2(e[c]);
+          signed_vals |= !(e[c] >= 0.f);
+        }
+      }
+    }
+  };
+
+  // the thread's item tile: item gi of the block, query slot ty, row slot
+  // tx; its queries are the 4 vectors of group ty of its item, its rows those
+  // of group tx (neighbouring threads on neighbouring groups)
+  const int per_item = t.ny * t.nx;
+  const bool computes = tid < t.g * per_item;
+  const int gi = tid / per_item, ty = tid % per_item / t.nx, tx = tid % per_item % t.nx;
+  const int qg = gi * t.ny + ty, xg = qvecs / 4 + gi * t.nx + tx;
+
+  float acc[TQ][TR];
+#pragma unroll
+  for (int i = 0; i < TQ; ++i)
+#pragma unroll
+    for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
+
+  // JS: the stage's tiles hold a negative or NaN value, the block-wide OR
+  // taken at the barrier that ends its staging
+  int signed_tile = 0;
+  fetch(0);
+  stage(0);
+  if constexpr (LOGS) {
+    signed_tile = __syncthreads_or(signed_vals);
+  } else {
+    __syncthreads();
+  }
+
+  int buf = 0;
+  for (int k0 = 0; k0 < d; k0 += BK) {
+    const bool more = k0 + BK < d;
+    if (more) fetch(k0 + BK);  // the next stage's loads fly while this one computes
+    if (computes) {
+      const float4* const base = vals + buf * groups * KS;
+      const float4* const lbase = logs + buf * groups * KS;
+      const float4 *qv = base + qg * KS, *xv = base + xg * KS, *ql = lbase + qg * KS, *xl = lbase + xg * KS;
+      if constexpr (LOGS) {
+        if (signed_tile) {
+          pair_stage<F, P, true>(acc, qv, xv, ql, xl, p);
+        } else {
+          pair_stage<F, P, false>(acc, qv, xv, ql, xl, p);
+        }
+      } else {
+        pair_stage<F, P, false>(acc, qv, xv, ql, xl, p);
+      }
+    }
+    if (more) {
+      // the other stage was last read before the previous barrier
+      stage(buf ^ 1);
+      if constexpr (LOGS) {
+        signed_tile = __syncthreads_or(signed_vals);
+      } else {
+        __syncthreads();
+      }
+      buf ^= 1;
+    }
+  }
+
+  if (!computes) return;
+  const int64_t b = b0 + gi;
+  if (b >= nb) return;
+  // the thread's query i and row j, as the groups above lay them out
+  const int64_t qb = q0 + ty * 4, rb = r0 + tx * 4;
+  float pr[TR];
+#pragma unroll
+  for (int j = 0; j < TR; ++j) pr[j] = rb + j < k ? pad[b * k + rb + j] : 0.f;
+#pragma unroll
+  for (int i = 0; i < TQ; ++i) {
+    if (qb + i >= cq) continue;
+#pragma unroll
+    for (int j = 0; j < TR; ++j) {
+      if (rb + j < k) out[(b * cq + qb + i) * k + rb + j] = __fadd_rn(post<F>(acc[i][j], inv_p, sqrt_post), pr[j]);
+    }
+  }
+}
+
 template <int F, int P, int QG>
 int launch_batched(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq, int64_t k,
                    int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
@@ -655,16 +830,25 @@ int launch_batched(const void* q, const void* rows, const void* pad, void* out, 
 }
 
 template <int F, int P>
-int launch_batched_form(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq,
-                        int64_t k, int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
-  return cq == 1 ? launch_batched<F, P, 1>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream)
-                 : launch_batched<F, P, 32>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream);
+int launch_pair(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq, int64_t k, int d,
+                float p, float inv_p, int sqrt_post, cudaStream_t stream) {
+  const PairTiling t = pair_tiling(cq, k, F == JS);
+  const int64_t blocks = (nb + t.g - 1) / t.g * t.qt * t.rt;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  auto kern = elementwise_pair_kernel<F, P>;
+  const cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, t.smem);
+  if (e != cudaSuccess) return (int)e;
+  kern<<<(unsigned)blocks, t.threads, t.smem, stream>>>((const float*)q, (const float*)rows, (const float*)pad,
+                                                         (float*)out, nb, cq, k, d, p, inv_p, sqrt_post, t);
+  return (int)cudaGetLastError();
 }
 
-template <int QG>
-int put_batched_geometry(int* out) {
-  out[0] = QG, out[1] = BatchedGeo<QG>::RW, out[2] = BatchedGeo<QG>::BR, out[3] = BD;
-  return 0;
+// Cq = 1 the gathered kernel, else the pair kernel
+template <int F, int P>
+int launch_batched_form(const void* q, const void* rows, const void* pad, void* out, int64_t nb, int cq,
+                        int64_t k, int d, float p, float inv_p, int sqrt_post, cudaStream_t stream) {
+  if (cq == 1) return launch_batched<F, P, 1>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream);
+  return launch_pair<F, P>(q, rows, pad, out, nb, cq, k, d, p, inv_p, sqrt_post, stream);
 }
 
 }  // namespace
@@ -726,7 +910,8 @@ int tk_elementwise_geometry(int form, int lp_power, int* out) {
 
 // The batched epilogue: out[b, i, j] f32[B, Cq, K] for q f32[B, Cq, D],
 // rows f32[B, K, D] and pad f32[B, K]; form, lp_power, p, inv_p and
-// sqrt_post as in tk_elementwise. Launches on `stream` and returns
+// sqrt_post as in tk_elementwise. Cq = 1 runs the gathered kernel, Cq > 1
+// the pair kernel at pair_tiling(Cq, K). Launches on `stream` and returns
 // cudaGetLastError().
 int tk_elementwise_batched(int form, int lp_power, const void* q, const void* rows, const void* pad, void* out,
                            long long nb, int cq, long long k, int d, float p, float inv_p, int sqrt_post,
@@ -753,12 +938,18 @@ int tk_elementwise_batched(int form, int lp_power, const void* q, const void* ro
   }
 }
 
-// The batched epilogue's tiling at Cq queries a batch item: out = {QG
-// (queries staged a pass), RW (rows a warp), BR (rows a block), BD (D
-// columns a step)}.
-int tk_elementwise_batched_geometry(int cq, int* out) {
-  if (cq <= 0) return (int)cudaErrorInvalidValue;
-  return cq == 1 ? put_batched_geometry<1>(out) : put_batched_geometry<32>(out);
+// The batched epilogue's tiling of form at cq queries against k rows an
+// item: Cq = 1 the gathered kernel's out = {rows a warp, rows a block, D
+// columns a step}; Cq > 1 the pair kernel's pair_tiling, out = {ny, nx, g,
+// qt, rt, threads, shared bytes, TQ, TR, BK}.
+int tk_elementwise_batched_geometry(int form, int cq, long long k, int* out) {
+  if (cq <= 0 || k <= 0 || form < L1 || form > JS) return (int)cudaErrorInvalidValue;
+  if (cq == 1) {
+    out[0] = BatchedGeo<1>::RW, out[1] = BatchedGeo<1>::BR, out[2] = BD;
+    return 0;
+  }
+  put_pair_tiling(pair_tiling(cq, k, form == JS), out);
+  return 0;
 }
 
 const char* tk_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }

@@ -28,7 +28,9 @@ distances f32[Q, N] (one launch a corpus slice: the spaces' ``block``),
 :func:`elementwise_batched` the distances f32[B, Cq, K] of each batch
 item's Cq queries against its own K rows (one launch a batch: the spaces'
 ``gathered_block``, Cq = 1, for pass 2 and the beam, and ``pair_block``,
-Cq = C, for the construction heuristic's pairs). ``lp`` at a ``p`` of
+Cq = C, for the construction heuristic's pairs: at Cq > 1 a kernel of its
+own, register tiles of C x C sums, tiled by ``csrc/pair_tiling.h`` from Cq
+and K and reported by :func:`batched_geometry`). ``lp`` at a ``p`` of
 :data:`LP_POWERS` runs an instance of its own, a product chain; at any
 other ``p`` it runs ex2(p lg2 |a - b|) on the card's special-function unit
 (:func:`lp_power` picks). The source is built with the group-min kernels
@@ -38,6 +40,7 @@ other ``p`` it runs ex2(p lg2 |a - b|) on the card's special-function unit
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -59,6 +62,10 @@ D_MULTIPLE = 8
 #: LP's integer powers with a kernel instance of their own, a product chain
 #: (csrc's ``TK_LP_POWERS``); every other p takes the MUFU route
 LP_POWERS = (3, 4, 5, 6, 7, 8)
+#: the batched epilogue's tiling as ``tk_elementwise_batched_geometry`` reports it: the gathered
+#: kernel's (Cq = 1) and the pair kernel's (Cq > 1; csrc/pair_tiling.h ``put_pair_tiling``)
+GATHERED_GEOMETRY = ("rows_a_warp", "rows_a_block", "columns_a_step")
+PAIR_GEOMETRY = ("ny", "nx", "g", "qt", "rt", "threads", "smem", "tq", "tr", "bk")
 
 
 def lp_power(p: float | None) -> int:
@@ -156,8 +163,9 @@ def _check_contract(fn: str, form: str, q, x, pad, p, epilogue: str) -> None:
         raise ValueError(f"{fn}: form 'lp' needs p > 0; got {p!r}")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
-    """The kernel's library (built by ops/groupmin.py), its entries typed."""
+    """The kernel's library (built by ops/groupmin.py), its entries typed, once."""
     lib = GM._load(LIB)
     vp, i64 = ctypes.c_void_p, ctypes.c_longlong
     ip = ctypes.POINTER(ctypes.c_int)
@@ -169,7 +177,7 @@ def _lib():
     lib.tk_elementwise_batched.argtypes = [ctypes.c_int, ctypes.c_int, vp, vp, vp, vp, i64, ctypes.c_int, i64,
                                            ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, vp]
     lib.tk_elementwise_batched.restype = ctypes.c_int
-    lib.tk_elementwise_batched_geometry.argtypes = [ctypes.c_int, ip]
+    lib.tk_elementwise_batched_geometry.argtypes = [ctypes.c_int, ctypes.c_int, i64, ip]
     lib.tk_elementwise_batched_geometry.restype = ctypes.c_int
     return lib
 
@@ -185,14 +193,32 @@ def geometry(form: str, p: float | None = None) -> dict:
     return dict(zip(("tq", "tr", "ku", "bq"), out))
 
 
-def batched_geometry(cq: int) -> dict:
-    """The batched epilogue's tiling at ``cq`` queries a batch item: queries
-    staged a pass, rows a warp, rows a block, D columns a step."""
-    out = (ctypes.c_int * 4)()
-    err = _lib().tk_elementwise_batched_geometry(cq, out)
+def geometry_dict(cq: int, k: int, out) -> dict:
+    """The batched epilogue's tiling at ``cq`` queries against ``k`` rows an item from the ints
+    ``tk_elementwise_batched_geometry`` wrote: the gathered kernel's :data:`GATHERED_GEOMETRY`
+    (Cq = 1), or the pair kernel's :data:`PAIR_GEOMETRY` with ``real``, the share of the pairs
+    its blocks' computing warps take that are real (padding and a last warp's idle lanes are
+    not)."""
+    if cq == 1:
+        return {"kernel": "gathered", **dict(zip(GATHERED_GEOMETRY, out))}
+    t = dict(zip(PAIR_GEOMETRY, out))
+    warps = -(-t["g"] * t["ny"] * t["nx"] // 32)
+    computed = t["qt"] * t["rt"] * warps * 32 / t["g"] * t["tq"] * t["tr"]
+    return {"kernel": "pairs", **t, "real": cq * k / computed}
+
+
+def batched_geometry(cq: int, k: int | None = None, form: str = "l1") -> dict:
+    """The batched epilogue's tiling on the card, as the library picks it, for ``cq`` queries
+    against ``k`` rows a batch item (``k`` = ``cq`` by default) of ``form``: see
+    :func:`geometry_dict`."""
+    k = cq if k is None else int(k)
+    if cq < 1 or k < 1:
+        raise ValueError(f"batched_geometry: needs cq and k >= 1; got {cq}, {k}")
+    out = (ctypes.c_int * len(PAIR_GEOMETRY))()
+    err = _lib().tk_elementwise_batched_geometry(FORMS[form][0], int(cq), k, out)
     if err != 0:
-        raise RuntimeError(f"groupmin_elementwise: no batched geometry at cq={cq} ({err})")
-    return dict(zip(("qg", "rw", "br", "bd"), out))
+        raise RuntimeError(f"groupmin_elementwise: no batched geometry at cq={cq}, k={k} ({err})")
+    return geometry_dict(int(cq), k, out)
 
 
 def _launch(epilogue: str, form: str, q, x, pad, p) -> torch.Tensor:

@@ -1,20 +1,24 @@
 """Where the time of the HNSW port goes on one CUDA card.
 
 Run from the root of a checkout: ``python3 -m tpu_knn_torch.tools.hnsw_profile``
-(``--rows 20000`` for a short run). It builds ``Index("l2", Params(dim=128))``
-(the default method, hnsw) over ``sift_like(rows + 2048, 128, seed=0)`` with
-M=16, efConstruction=200, waveSize=1024 and prints, each line with the card's
-name and power limit:
+(``--rows 20000`` for a short run), or by path with another checkout first on
+the module path (``PYTHONPATH=<checkout> python3
+tpu_knn_torch/tools/hnsw_profile.py``) to time that checkout with this tool.
+It builds ``Index(space, Params(dim=128))`` (``--space``, default l2; the
+default method, hnsw) over ``sift_like(rows + 2048, 128, seed=0)`` with
+M=16, efConstruction=200 (``--efc``), waveSize=1024 and prints, each line with
+the card's name and power limit:
 
   * build seconds and peak memory, ``check_graph``;
   * recall@10 against the exact scan and the wall of a 2048-query batch at
     efSearch 10..200, with the loops' iterations and host syncs;
   * the device ms of one beam iteration's parts at each efSearch, as
     stand-alone ops at the search's shapes: the row gather, the batched
-    product, the three sorts;
+    product, the three sorts (l2 only: the product is its scorer);
   * with ``--profile-waves``, a second build whose wave step times its
     phases (a sync at every phase edge, so its total exceeds the plain
-    build's);
+    build's): ``--space l1 --rows 20000 --efc 100`` gives the ``pairs`` ms
+    of the elementwise kernel's pair form at the build's own shapes;
   * with ``--async``, the wall of one 2048-query batch at efSearch=20 run
     four ways in turns (``knn_query_batch`` on the caller's thread, the same
     under a side stream, the same on a helper thread, and through
@@ -61,8 +65,8 @@ def beam_parts_ms(vecs, nq: int, ef: int, m0: int = 32, expand: int = 4) -> dict
     candidates and a beam of ``ef``, as stand-alone ops."""
     import torch
 
-    from ..ops.distance import batched_dot
-    from ..ops.topk import smallest_k
+    from tpu_knn_torch.ops.distance import batched_dot
+    from tpu_knn_torch.ops.topk import smallest_k
 
     dev = vecs.device
     g = torch.Generator(device=dev).manual_seed(0)
@@ -89,7 +93,7 @@ def async_split(idx, queries, k: int, smi: str, rounds: int = 7) -> dict:
 
     import torch
 
-    from .. import Params
+    from tpu_knn_torch import Params
 
     idx.set_query_time_params(Params(efSearch=20))
     side = torch.cuda.Stream()
@@ -146,14 +150,15 @@ def nnd_log_summary(lines) -> tuple[list, list, list]:
 def main() -> int:
     import torch
 
-    from .. import Index, Params
-    from ..eval.datasets import sift_like
-    from ..methods.hnsw import Hnsw
-    from ..ops import graph as G
-    from ..utils import logging as L
+    from tpu_knn_torch import Index, Params
+    from tpu_knn_torch.eval.datasets import sift_like
+    from tpu_knn_torch.methods.hnsw import Hnsw
+    from tpu_knn_torch.ops import graph as G
+    from tpu_knn_torch.utils import logging as L
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--rows", type=int, help="corpus rows (default 100,000; 1,000,000 with --nnd)")
+    ap.add_argument("--space", default="l2", help="the dense space of the index (default l2)")
     ap.add_argument("--efc", type=int, help="efConstruction (default 200; 100 with --nnd)")
     ap.add_argument("--profile-waves", action="store_true")
     ap.add_argument("--nnd", action="store_true", help="the NN-descent build at SIFT-1M, phase by phase")
@@ -176,7 +181,7 @@ def main() -> int:
     lines: list = []
 
     def make(profile=None):
-        idx = Index("l2", Params(dim=128), device="cuda")
+        idx = Index(args.space, Params(dim=128), device="cuda")
         idx.add_dense_batch(corpus)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -193,7 +198,7 @@ def main() -> int:
 
     G.reset_counters()
     idx, build_s, peak = make()
-    print(f"[build] {args.rows} x 128, {build.as_dict()}: {build_s:.2f} s, peak allocated "
+    print(f"[build] {args.space} {args.rows} x 128, {build.as_dict()}: {build_s:.2f} s, peak allocated "
           f"{peak / 2**30:.3f} GiB, check_graph {idx.method.check_graph()}, levels "
           f"{len(idx.method._upper) + 1}, loop counters {json.dumps(G.counters)}; {smi}", flush=True)
     if args.nnd:
@@ -201,7 +206,7 @@ def main() -> int:
         print(f"[nnd] phase walls (s, in order, one sync each): {json.dumps(phases)}; descent updates per sweep "
               f"{sweeps}; repaired nodes per link {repaired}; {smi}", flush=True)
 
-    exact = Index("l2", Params(dim=128), method="seq_search", device="cuda")
+    exact = Index(args.space, Params(dim=128), method="seq_search", device="cuda")
     exact.add_dense_batch(corpus)
     _, gi = exact.knn_query_batch(queries, k)
     del exact
@@ -222,7 +227,7 @@ def main() -> int:
             best = min(best, time.perf_counter() - t0)
         print(f"[search] efSearch={ef}: recall@{k} {recall(i):.4f}, best of 3 {best * 1e3:.2f} ms, "
               f"{nq / best:.0f} qps, counters {json.dumps(counts)}; {smi}", flush=True)
-    for ef in (10, 20, 50, 100, 200):
+    for ef in (10, 20, 50, 100, 200) if args.space == "l2" else ():
         parts = beam_parts_ms(idx.method.data.vecs, nq, ef)
         print(f"[beam parts] efSearch={ef}, device ms per iteration: "
               f"{json.dumps({a: round(b, 4) for a, b in parts.items()})}; {smi}", flush=True)
