@@ -9,9 +9,10 @@ printed as it ends, each fatal on failure:
  1. environment: torch/CUDA versions, the card's name and power limit;
     IEEE f32 matmuls (no TF32) required;
  2. build: compile csrc/groupmin.cu (f32), csrc/groupmin_wgmma_i8.cu
-    (int8), csrc/groupmin_wgmma.cu (bf16x3, bf16) and
-    csrc/groupmin_elementwise.cu (L1, LINF, LP, JS) for sm_90a, one nvcc
-    each, side by side; registers and spills of every kernel and template
+    (int8), csrc/groupmin_wgmma.cu (bf16x3, bf16),
+    csrc/groupmin_elementwise.cu (L1, LINF, LP, JS) and
+    csrc/sparse_qdense.cu (the sparse scan) for sm_90a, one nvcc each,
+    side by side; registers and spills of every kernel and template
     instance, any ptxas warning or remark on the wgmma pipeline, the build
     time;
  3. the f32 group-min kernel against its plain PyTorch version computed in
@@ -187,14 +188,27 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     efSearch 50 and 100 (recall >= 0.95 at 100), every distance its id's
     f64 distance, and save/load in each mode with results bit-identical;
     (c) the 1M exact scan (1,000,000 rows, vocab 60,000): median of 5, peak
-    memory, 64 queries against the f64 oracle; (d) at 5,000 rows every
+    memory, the kernel's launches (every count set to 0 just before it) and
+    the wall's split between the kernel and the top-k merges, 64 queries
+    against the f64 oracle; before it, [sparse] kernel: csrc/sparse_qdense.cu
+    in every form (negdot, querynorm, cosine, angular, the 0/1 forms,
+    jaccard) against its plain version at (a)'s and (c)'s chunk shapes
+    (512 x 4080 x 64, vocab 30,080 and 60,032; the 0/1 forms and jaccard
+    equal, the others within rtol 5e-3), its time beside the plain
+    version's, torch.sparse.mm's of the dots alone and its bound, over (c)'s
+    whole corpus too, and an edge sweep (Q 1-512, C 1-1000, rows of 1-200
+    slots, empty, zero-norm and out-of-vocabulary rows, a table off a
+    16-byte boundary); (d) at 5,000 rows every
     sparse name's kNN and range against its f64 oracle, HNSW by exact waves
     (sketchDim=0, moved here from 100,000 rows, its wave phases timed),
     with sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse
     and sparse_jaccard HNSW (recall@10 at efSearch=100 >= 0.9, 0.5, 0.9,
     0.85, 0.9), R drawn on the card against R drawn on the CPU, whether the
-    native pack_csr built. No kernel lies on this path: torch ops, as they
-    are XLA ops in tpu_knn.
+    native pack_csr built. The scans of the dot spaces and Jaccard run
+    csrc/sparse_qdense.cu (one launch a chunk); the Lp family's lookup and
+    the graph's gathered and pair scorers are torch ops, as they are XLA
+    ops in tpu_knn. A guard counts the sparse scan's plain versions called
+    on CUDA tensors over phases 18-20 and requires 0.
 19. bits, word_embed, NAPP and the inverted index: (a) [bits] SimHash
     codes of phase 4's rows (signs of a seeded [128, 256] Gaussian
     projection, 256 bits packed to uint32 words) through
@@ -304,14 +318,16 @@ share of it. No kernel lies on HNSW's own path, waves or NN-descent (their
 loops are torch ops, as they are XLA ops in tpu_knn); it reaches the f32
 kernel through GoldStandard and phase 4's exact ids. The exact scan of
 the elementwise spaces (l1, linf, lp, dummy, JS) runs
-csrc/groupmin_elementwise.cu; Renyi's block scan is torch ops, as it is
-XLA ops in tpu_knn. The last two lines are the kernels' JSON record and
+csrc/groupmin_elementwise.cu, that of the sparse dot spaces and Jaccard
+csrc/sparse_qdense.cu; Renyi's block scan is torch ops, as it is XLA ops
+in tpu_knn. The last two lines are the kernels' JSON record and
 {"ok": true, "device": {...}}. Exits non-zero without a result when there
 is no CUDA card or any phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -2314,23 +2330,32 @@ def _ew_main_check(smi, label, idx, queries, cdist_p, sass) -> dict:
 
 
 class _PlainGuard:
-    """Counts, while active, the calls on CUDA tensors of the elementwise kernel's plain arithmetic
-    (ops/elementwise.distances, which every plain version runs, and the ops/distance blocks it
-    takes): on the card every scorer of the thirteen elementwise names launches the kernel, so
-    an index run must count 0."""
+    """Counts, while active, the calls on CUDA tensors of a kernel's plain arithmetic: by default
+    the elementwise kernel's (ops/elementwise.distances, which every plain version runs, and the
+    ops/distance blocks it takes): on the card every scorer of the thirteen elementwise names
+    launches the kernel, so an index run must count 0. ``SPARSE_PLAIN`` names the sparse scan's
+    (ops/sparse.qdense_dists_reference and the two products it runs). Calls made while
+    :meth:`paused` (a kernel held against its plain version) do not count."""
+
+    _paused = 0
+
+    def __init__(self, targets=None):
+        self.targets = targets or (("elementwise", "distances"), ("distance", "l1_blocked"),
+                                   ("distance", "linf_blocked"), ("distance", "lp_blocked"),
+                                   ("distance", "js_div_blocked"))
 
     def __enter__(self):
+        import importlib
+
         import torch
-        from tpu_knn_torch.ops import distance as D
-        from tpu_knn_torch.ops import elementwise as EW
 
         self.count, self._saved = 0, []
-        for mod, fn in ((EW, "distances"), (D, "l1_blocked"), (D, "linf_blocked"), (D, "lp_blocked"),
-                        (D, "js_div_blocked")):
+        for mod_name, fn in self.targets:
+            mod = importlib.import_module(f"tpu_knn_torch.ops.{mod_name}")
             real = getattr(mod, fn)
 
             def spy(*args, _real=real, **kw):
-                if any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                if not _PlainGuard._paused and any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
                     self.count += 1
                 return _real(*args, **kw)
 
@@ -2341,6 +2366,19 @@ class _PlainGuard:
     def __exit__(self, *exc):
         for mod, fn, real in self._saved:
             setattr(mod, fn, real)
+
+    @staticmethod
+    @contextlib.contextmanager
+    def paused():
+        _PlainGuard._paused += 1
+        try:
+            yield
+        finally:
+            _PlainGuard._paused -= 1
+
+
+#: the sparse scan's plain arithmetic (ops/sparse.py), which no run of phases 18-20 calls on the card
+SPARSE_PLAIN = (("sparse", "qdense_dists_reference"), ("sparse", "dot_qdense"), ("sparse", "intersect_count_qdense"))
 
 
 #: the batched sweep's (Cq, K): Cq 1, 5 and 40 against K 1, 37 and 300
@@ -3043,6 +3081,165 @@ def _timed_knn(idx, pts, k: int, reps: int, agg):
     return agg(walls), d, i
 
 
+#: csrc/sparse_qdense.cu's checks: (label, form, 0/1 values); the 0/1 forms and Jaccard sum
+#: integers, so the kernel must equal its plain version there
+SQ_CASES = (("negdot", "negdot", False), ("querynorm", "querynorm", False), ("cosine", "cosine", False),
+            ("angular", "angular", False), ("negdot_bin", "negdot", True), ("cosine_bin", "cosine", True),
+            ("jaccard", "jaccard", True))
+
+
+def _sq_bound_ms(elements: int, nq: int, v: int, rows: int):
+    """(ms, by) of the least time for csrc/sparse_qdense.cu's work: each real corpus element's id
+    and value, the [V, Q] table, pad and the [Q, rows] output moved once at 3.35 TB/s, against one
+    multiply-add a (real element, query) pair at the 67 TFLOP/s FP32 peak."""
+    nbytes = 8 * elements + 4 * v * nq + 4 * rows + 4 * nq * rows
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * elements * nq / PEAK_OPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sq_inputs(label, qenc, xc, binary: bool):
+    """(table, w, qn) of one check: the scan's own table, values and query norms, or their 0/1
+    forms (the _bin_fast names' encodings; Jaccard reads the presence table)."""
+    from tpu_knn_torch.ops import sparse as S
+
+    if label == "jaccard" or binary:
+        return (qenc["q_dense_t"] != 0).float(), (xc["x"] != 0).float(), S.norms_from_vals((qenc["qval"] != 0).float())
+    return qenc["q_dense_t"], xc["x"], qenc["qnorm"]
+
+
+def _sq_compare(label, got, ref, exact: bool) -> float:
+    """The kernel's distances against its plain version's: equal for the integer sums, else within
+    rtol 5e-3 and atol 1e-5 (an angular distance also passes with its cosine within 1e-6, the
+    repository's rule: arccos is ill-conditioned near 0). Returns max |got - ref|."""
+    import torch
+
+    _require(got.shape == ref.shape, lambda: f"{label}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
+    if exact:
+        _require(bool(torch.equal(got, ref)), lambda: f"{label}: the kernel differs from its plain version "
+                                                      f"in {int((got != ref).sum())} cells")
+        return 0.0
+    ok = torch.isclose(got, ref, rtol=5e-3, atol=1e-5)
+    if "angular" in label:
+        ok |= (torch.cos(got.double()) - torch.cos(ref.double())).abs() <= 1e-6
+    _require(bool(ok.all()), lambda: f"{label}: {int((~ok).sum())} cells beyond rtol 5e-3 of the plain version, "
+                                     f"max |diff| {float((got - ref).abs().max()):.3g}")
+    return float((got - ref).abs().max())
+
+
+def _sq_cell(smi, label, ix, queries, full: bool) -> dict:
+    """csrc/sparse_qdense.cu at one cell's scan chunk (its first chunk of rows against the cell's
+    512 queries) in every form against its plain version, with the kernel's, the plain version's
+    and ``torch.sparse.mm``'s times at that shape (the dots alone, CSR rows times the table), and
+    its bound; with ``full``, also both over every chunk of the cell's corpus, the kernel's own
+    launches of the scan."""
+    import torch
+    from tpu_knn_torch.ops import sparse as S
+
+    space, data, chunk = ix.method.space, ix.method.data, ix.method._chunk
+    xc = space.slice_data(data, 0, chunk)
+    qenc = space.densify_queries(space.encode_queries(queries), xc, scan=True)
+    nq, v = qenc["q_dense_t"].shape[1], qenc["q_dense_t"].shape[0]
+    errs = {}
+    with _PlainGuard.paused():
+        for case, form, binary in SQ_CASES:
+            table, w, qn = _sq_inputs(case, qenc, xc, binary)
+            args = (form, table, xc["cols"], w, qn, qenc["qlen"], xc["len"], xc["pad"])
+            errs[case] = _sq_compare(f"sparse kernel {label} {case}", S.qdense_dists(*args),
+                                     S.qdense_dists_reference(*args), binary or form == "jaccard")
+        args = ("cosine", qenc["q_dense_t"], xc["cols"], xc["x"], qenc["qnorm"], None, None, xc["pad"])
+        ms = _cuda_ms(lambda: S.qdense_dists(*args), 20)
+        plain_ms = _cuda_ms(lambda: S.qdense_dists_reference(*args), 5)
+    real = (xc["cols"] >= 1) & (xc["cols"] < S.PAD_X)
+    e = int(real.sum())
+    crow = torch.cat([real.new_zeros(1, dtype=torch.int64), torch.cumsum(real.sum(1), 0)])
+    xs = torch.sparse_csr_tensor(crow, xc["cols"][real].long() - 1, xc["x"][real], size=(chunk, v))
+    lib_ms = _cuda_ms(lambda: torch.sparse.mm(xs, qenc["q_dense_t"]), 20)
+    bound, by = _sq_bound_ms(e, nq, v, chunk)
+    out = {"shape": [nq, chunk, xc["cols"].shape[1], v], "max_abs_err": max(errs.values()), "ms": ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+    print(f"[sparse] kernel {label}: {nq} queries x {chunk} rows x {xc['cols'].shape[1]} slots, vocab {v}, {e} "
+          f"elements; every form against its plain version (" + ", ".join(f"{c} {x:.3g}" for c, x in errs.items())
+          + f" max |diff|; the 0/1 forms and jaccard equal); cosine {ms:.4f} ms a launch (mean of 20), plain "
+          f"{plain_ms:.4f} ms, torch.sparse.mm of the dots alone {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
+          f"{bound / ms:.1%}); {smi}", flush=True)
+    if full:  # the scan's launches over every chunk of the corpus
+        table, qn, n_pad = qenc["q_dense_t"], qenc["qnorm"], data.ids.shape[0]
+        sl = [space.slice_data(data, s, chunk) for s in range(0, n_pad, chunk)]
+
+        def scan(fn):
+            return lambda: [fn("cosine", table, x["cols"], x["x"], qn, None, None, x["pad"]) for x in sl]
+
+        with _PlainGuard.paused():
+            out["full_ms"] = _cuda_ms(scan(S.qdense_dists), 5)
+            out["full_plain_ms"] = _cuda_ms(scan(S.qdense_dists_reference), 1)
+        e_all = int(data.length.sum())
+        out["full_bound_ms"], out["full_bound_by"] = _sq_bound_ms(e_all, nq, v, n_pad)
+        out["full_elements"] = e_all
+        print(f"[sparse] kernel {label} over all {n_pad} rows ({len(sl)} launches, {e_all} elements): "
+              f"{out['full_ms']:.3f} ms (mean of 5), plain {out['full_plain_ms']:.3f} ms, bound "
+              f"{out['full_bound_ms']:.3f} ms ({out['full_bound_by']}, {out['full_bound_ms'] / out['full_ms']:.1%}); "
+              f"{smi}", flush=True)
+    return out
+
+
+def _sq_edge_sweep() -> tuple:
+    """csrc/sparse_qdense.cu against its plain version in every form at the edges: Q in {1, 7,
+    130, 512} (130 and 7 leave a ragged query tile, 7 and 1 the lanes' 4-query vectors), C in {1,
+    33, 1000} (ragged row tiles), rows of at most 1, 64 and 200 slots (several 64-slot stages)
+    with empty rows, zero-norm rows (real ids of value 0) and padding inside a stage, an empty
+    query and query ids beyond the vocabulary, vocabularies of 128 and 1,024 ids, and each table
+    also at an address 4 bytes off a 16-byte boundary (the kernel's scalar loads). Returns (runs,
+    max |kernel - plain| over the non-integer forms)."""
+    import torch
+    from tpu_knn_torch.core.dataset import SparsePoint
+    from tpu_knn_torch.ops import sparse as S
+    from tpu_knn_torch.spaces.sparse import _pack_csr
+
+    rng = np.random.default_rng(18)
+    dev = torch.device("cuda")
+    runs, worst = 0, 0.0
+
+    def points(n, nnz, universe, empty_every, zero_every):
+        pts = []
+        for r in range(n):
+            m = 0 if r % empty_every == 1 else (nnz if r % 2 else int(rng.integers(1, nnz + 1)))
+            ids = np.sort(rng.choice(np.arange(1, universe + 1), size=min(m, universe), replace=False))
+            vals = rng.standard_normal(ids.size).astype(np.float32)
+            if r % zero_every == 3:
+                vals[:] = 0.0
+            pts.append(SparsePoint(ids.astype(np.int32), vals))
+        return pts
+
+    with _PlainGuard.paused():
+        for nnz in (1, 64, 200):
+            for v in (128, 1024):
+                xcol, xval, xlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(points(1000, nnz, v, 7, 11), 1000))
+                # the queries' ids run past the vocabulary: densify_t drops them, as the scan does
+                qp = points(512, min(nnz + 8, 80), v + 64, 9, 13)
+                qcol, qval, qlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(qp, 512, pad_col=S.PAD_Q))
+                pad = torch.zeros(1000, device=dev)
+                pad[990:] = 1e30
+                for nq in (1, 7, 130, 512):
+                    for c in (1, 33, 1000):
+                        for case, form, binary in SQ_CASES:
+                            qv = (qval[:nq] != 0).float() if binary or form == "jaccard" else qval[:nq]
+                            xv = (xval[:c] != 0).float() if binary else xval[:c]
+                            for off in (0, 1):
+                                t = S.densify_t(qcol[:nq], qv, v)
+                                if off:  # the same table 4 bytes off a 16-byte boundary
+                                    buf = torch.empty(t.numel() + 1, device=dev)
+                                    buf[1:] = t.reshape(-1)
+                                    t = buf[1:].view(t.shape)
+                                args = (form, t, xcol[:c], xv, S.norms_from_vals(qv), qlen[:nq], xlen[:c], pad[:c])
+                                err = _sq_compare(f"sparse kernel edge sweep {case} nnz={nnz} V={v} Q={nq} C={c} "
+                                                  f"offset={off}", S.qdense_dists(*args),
+                                                  S.qdense_dists_reference(*args), binary or form == "jaccard")
+                                worst = max(worst, err)
+                                runs += 1
+    torch.cuda.synchronize()
+    return runs, worst
+
+
 def _phase_sparse(smi):
     """Phase 18: the sparse spaces over sparse_like bag-of-words corpora
     (the NMSLIB TF-IDF deployments, which the repository does not hold).
@@ -3062,7 +3259,9 @@ def _phase_sparse(smi):
     from tpu_knn_torch.eval.datasets import sparse_like
     from tpu_knn_torch.io import native
     from tpu_knn_torch.ops import graph as G
+    from tpu_knn_torch.ops import groupmin as GM
     from tpu_knn_torch.ops import sparse as S
+    from tpu_knn_torch.ops import topk as T
 
     out = {}
     zero = {"self_links": 0, "dup_links": 0, "oob_links": 0}
@@ -3085,14 +3284,19 @@ def _phase_sparse(smi):
     torch.cuda.synchronize()
     scan_build = time.perf_counter() - tb
     torch.cuda.reset_peak_memory_stats()
+    GM.reset_launches()
     med, de, ie = _timed_knn(ex, queries, k, 5, statistics.median)
+    launches_a = GM.launches["sparse_qdense_cosine"]
     peak = torch.cuda.max_memory_allocated() / 2**30
     diff, err = _check_sparse_knn("scan cosinesimil_sparse 100k", ie, de, d64, b64, k)
-    out["scan_100k"] = {"qps": nq / med, "ms": med * 1e3, "peak_gib": peak}
+    out["scan_100k"] = {"qps": nq / med, "ms": med * 1e3, "peak_gib": peak, "launches": launches_a}
     print(f"[sparse] (a) scan cosinesimil_sparse {n} rows, {nq} queries, k={k}: encode {scan_build:.2f} s, median of 5 "
           f"{med * 1e3:.2f} ms, {nq / med:.0f} qps, peak allocated {peak:.3f} GiB; route {ex.method.last_route}; "
-          f"ids against the f64 scipy oracle ({oracle_s:.1f} s): {diff} differ on ties, max |dist - f64| {err:.3g}; "
-          f"{smi}", flush=True)
+          f"sparse_qdense_cosine launched {launches_a} times in 6 scans of {ex.method.data.ids.shape[0]} rows "
+          f"({ex.method._chunk}-row chunks); ids against the f64 scipy oracle ({oracle_s:.1f} s): {diff} differ on "
+          f"ties, max |dist - f64| {err:.3g}; {smi}", flush=True)
+    _require(launches_a == 6 * (ex.method.data.ids.shape[0] // ex.method._chunk) and sum(GM.launches.values()) == launches_a,
+             lambda: f"(a): kernel launches {GM.launches}")
     _require(ex.method.last_route == "single", lambda: f"the sparse scan took the {ex.method.last_route} route")
 
     def hnsw_cell(label, params, ix=None):
@@ -3145,7 +3349,7 @@ def _phase_sparse(smi):
         shutil.rmtree(tmp, ignore_errors=True)
     print("[sparse] save/load of (b)'s index, save_data and load_data each True and False: results bit-identical",
           flush=True)
-    del hx, ex
+    del hx
     torch.cuda.empty_cache()
 
     # ---- (d) side cells at 5,000 rows (cut from 20,000 to keep the phase near 300 s, then from
@@ -3243,9 +3447,37 @@ def _phase_sparse(smi):
     big.build_index()
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - tb
+
+    # ---- the kernel, csrc/sparse_qdense.cu: every form against its plain version at (a)'s and
+    # (c)'s chunk shapes and over (c)'s whole corpus, then the edge sweep ----
+    t0 = time.perf_counter()
+    out["kernel"] = {"config5": _sq_cell(smi, "config 5", ex, queries, False),
+                     "1m": _sq_cell(smi, "1M", big, qq3, True)}
+    runs, worst = _sq_edge_sweep()
+    out["kernel"]["sweep"] = {"runs": runs, "max_abs_err": worst}
+    print(f"[sparse] kernel edge sweep: {runs} runs (Q 1-512, C 1-1000, rows of 1-200 slots, empty, zero-norm and "
+          f"out-of-vocabulary rows, tables off a 16-byte boundary) each equal to or within rtol 5e-3 of the plain "
+          f"version, max |diff| {worst:.3g}; the kernel step {time.perf_counter() - t0:.1f} s", flush=True)
+    del ex
+
+    # ---- (c) the main path: the 1M scan, every count set to 0 just before it ----
     torch.cuda.reset_peak_memory_stats()
+    GM.reset_launches()
     med3, d3, i3 = _timed_knn(big, qq3, k, 5, statistics.median)
+    launches3 = dict(GM.launches)
     peak3 = torch.cuda.max_memory_allocated() / 2**30
+    chunks3 = big.method.data.ids.shape[0] // big.method._chunk
+    _require(launches3["sparse_qdense_cosine"] == 6 * chunks3 and sum(launches3.values()) == 6 * chunks3,
+             lambda: f"(c): kernel launches {launches3}, {6 * chunks3} expected")
+    # the wall's split: the kernel's launches of one scan (above) and its top-k merges, each by CUDA
+    # events; the rest is the table, the host's launches and the final copy
+    blk = torch.rand((nq, big.method._chunk), device="cuda")
+    fd = torch.full((nq, k), float("inf"), device="cuda")
+    fi = torch.full((nq, k), -1, dtype=torch.int64, device="cuda")
+    cols = torch.arange(big.method._chunk, device="cuda").expand(nq, -1)
+    merge_ms = _cuda_ms(lambda: [T.merge_topk(fd, fi, blk, cols, k) for _ in range(chunks3)], 3)
+    kern_ms = out["kernel"]["1m"]["full_ms"]
+    del blk, fd, fi, cols
     t0 = time.perf_counter()
     o3, ob3 = _sparse_f64("cosine", _csr64(qq3[:64], vocab3), _csr64(c3, vocab3))
     diff3, err3 = _check_sparse_knn("scan cosinesimil_sparse 1M", i3[:64], d3[:64], o3, ob3, k)
@@ -3265,12 +3497,17 @@ def _phase_sparse(smi):
     lib_ms = _cuda_ms(lambda: torch.sparse.mm(xs, qt), 5)
     del xs, qt, crow, xcol, xval
     out["scan_1m"] = {"qps": nq / med3, "ms": med3 * 1e3, "peak_gib": peak3, "bound_ms": bound_ms,
-                      "library_ms": lib_ms}
+                      "library_ms": lib_ms, "launches": launches3["sparse_qdense_cosine"], "kernel_ms": kern_ms,
+                      "merge_ms": merge_ms}
     print(f"[sparse] (c) scan cosinesimil_sparse {n3} rows (vocab {vocab3}, {nnz3} elements), {nq} queries: data "
           f"{data_s:.1f} s, add + encode {enc_s:.1f} s, median of 5 {med3 * 1e3:.2f} ms, {nq / med3:.0f} qps, peak "
-          f"allocated {peak3:.3f} GiB; bound {bound_ms:.3f} ms; library torch.sparse.mm of the dots alone "
-          f"{lib_ms:.3f} ms (CUDA events, mean of 5); 64 queries against the f64 oracle ({oracle_s:.1f} s): "
-          f"{diff3} ids differ on ties, max |dist - f64| {err3:.3g}; {smi}", flush=True)
+          f"allocated {peak3:.3f} GiB; sparse_qdense_cosine launched {launches3['sparse_qdense_cosine']} times in 6 "
+          f"scans ({chunks3} chunks of {big.method._chunk} rows each), no other kernel; of the wall the kernel "
+          f"{kern_ms:.3f} ms and the {chunks3} top-k merges {merge_ms:.3f} ms (CUDA events), the rest "
+          f"{med3 * 1e3 - kern_ms - merge_ms:.3f} ms (the table, the host's launches, the copy back); bound "
+          f"{bound_ms:.3f} ms; library torch.sparse.mm of the dots alone {lib_ms:.3f} ms (CUDA events, mean of 5); "
+          f"64 queries against the f64 oracle ({oracle_s:.1f} s): {diff3} ids differ on ties, max |dist - f64| "
+          f"{err3:.3g}; {smi}", flush=True)
     return out
 
 
@@ -4863,36 +5100,43 @@ def main() -> int:
     t0 = _phase("dense", t0)
     print("[dense] " + json.dumps(dn) + f"; {smi}", flush=True)
 
-    # ---- 18. sparse: the sparse spaces, exact scan and HNSW ----
-    sn = _phase_sparse(smi)
-    t0 = _phase("sparse", t0)
-    print("[sparse] " + json.dumps({
-        "scan_100k": sn["scan_100k"], "hnsw_default": sn["hnsw_default"],
-        "scan_1m": sn["scan_1m"], "side": sn["side"], "wave_profile": sn["wave_profile"], "r_ulp": sn["r_ulp"]},
-        default=float) + f"; {smi}", flush=True)
+    # phases 18-20 run under a guard that counts the sparse scan's plain arithmetic on CUDA tensors
+    # (every sparse space's scan, NAPP's and VP-tree's blocks, HNSW's wave mates launch the kernel
+    # instead); the kernel step's comparisons with the plain version pause it
+    with _PlainGuard(SPARSE_PLAIN) as sparse_guard:
+        # ---- 18. sparse: the sparse spaces, exact scan and HNSW ----
+        sn = _phase_sparse(smi)
+        t0 = _phase("sparse", t0)
+        print("[sparse] " + json.dumps({
+            "scan_100k": sn["scan_100k"], "hnsw_default": sn["hnsw_default"], "scan_1m": sn["scan_1m"],
+            "kernel": sn["kernel"], "side": sn["side"], "wave_profile": sn["wave_profile"], "r_ulp": sn["r_ulp"]},
+            default=float) + f"; {smi}", flush=True)
 
-    # ---- 19. bits, word_embed, NAPP and the inverted index ----
-    torch.cuda.empty_cache()
-    bt = _phase_bits(smi, corpus, queries)
-    print("[bits] " + json.dumps(bt, default=float) + f"; {smi}", flush=True)
-    em = _phase_embed(smi)
-    print("[embed] " + json.dumps(em, default=float) + f"; {smi}", flush=True)
-    na = _phase_napp(smi, corpus, queries, i10)
-    print("[napp] " + json.dumps(na, default=float) + f"; {smi}", flush=True)
-    t0 = _phase("bits, word_embed, napp", t0)
+        # ---- 19. bits, word_embed, NAPP and the inverted index ----
+        torch.cuda.empty_cache()
+        bt = _phase_bits(smi, corpus, queries)
+        print("[bits] " + json.dumps(bt, default=float) + f"; {smi}", flush=True)
+        em = _phase_embed(smi)
+        print("[embed] " + json.dumps(em, default=float) + f"; {smi}", flush=True)
+        na = _phase_napp(smi, corpus, queries, i10)
+        print("[napp] " + json.dumps(na, default=float) + f"; {smi}", flush=True)
+        t0 = _phase("bits, word_embed, napp", t0)
 
-    # ---- 20. VP-tree, sw-graph, the string spaces, SQFD, fusion and dummy ----
-    # (a) and (d) read phase 4's rows, so they run before the corpus is freed
-    vt = _phase_vptree(smi, corpus, queries, i10, d10)
-    print("[vptree] " + json.dumps(vt, default=float) + f"; {smi}", flush=True)
-    sm = _phase_small(smi, corpus, queries)
-    print("[sqfd] " + json.dumps(sm, default=float) + f"; {smi}", flush=True)
-    t0 = _phase("vptree and the small names", t0)
-    sg = _phase_swgraph(smi)
-    print("[swgraph] " + json.dumps(sg, default=float) + f"; {smi}", flush=True)
-    st = _phase_string(smi)
-    print("[string] " + json.dumps(st, default=float) + f"; {smi}", flush=True)
-    t0 = _phase("sw-graph and the string spaces", t0)
+        # ---- 20. VP-tree, sw-graph, the string spaces, SQFD, fusion and dummy ----
+        # (a) and (d) read phase 4's rows, so they run before the corpus is freed
+        vt = _phase_vptree(smi, corpus, queries, i10, d10)
+        print("[vptree] " + json.dumps(vt, default=float) + f"; {smi}", flush=True)
+        sm = _phase_small(smi, corpus, queries)
+        print("[sqfd] " + json.dumps(sm, default=float) + f"; {smi}", flush=True)
+        t0 = _phase("vptree and the small names", t0)
+        sg = _phase_swgraph(smi)
+        print("[swgraph] " + json.dumps(sg, default=float) + f"; {smi}", flush=True)
+        st = _phase_string(smi)
+        print("[string] " + json.dumps(st, default=float) + f"; {smi}", flush=True)
+        t0 = _phase("sw-graph and the string spaces", t0)
+    print(f"[sparse] plain versions of the sparse scan called on CUDA tensors over phases 18-20: "
+          f"{sparse_guard.count}", flush=True)
+    _require(sparse_guard.count == 0, lambda: f"{sparse_guard.count} plain sparse-scan calls on the card")
 
     # ---- 21. the CLI and the mesh layer (phase 4's rows, then freed) ----
     torch.cuda.empty_cache()
@@ -4943,6 +5187,17 @@ def main() -> int:
             "replaces": replaces[key.split("_")[1]], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # the sparse scan's kernel over the 1M cell's whole corpus (its 245 launches of one scan);
+    # library_ms: torch.sparse.mm of the dots alone over the same rows
+    sq = sn["kernel"]["1m"]
+    record["kernels"].append({
+        "name": "sparse_qdense", "route": "cuda", "source": "tpu_knn_torch/csrc/sparse_qdense.cu",
+        "replaces": "tpu_knn/ops/sparse.py:128 dot_qdense, :149 intersect_count_qdense (XLA gather + einsum)",
+        "launches": sn["scan_1m"]["launches"],
+        "max_abs_err": max(sq["max_abs_err"], sn["kernel"]["config5"]["max_abs_err"],
+                           sn["kernel"]["sweep"]["max_abs_err"]),
+        "ms": sq["full_ms"], "plain_ms": sq["full_plain_ms"], "bound_ms": sq["full_bound_ms"],
+        "bound_by": sq["full_bound_by"], "library_ms": sn["scan_1m"]["library_ms"]})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

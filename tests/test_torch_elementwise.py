@@ -192,7 +192,7 @@ def test_launch_keys_are_the_shared_counters():
     epilogue and kernel form."""
     assert EW.EPILOGUES == ("groupmin", "dists", "batched")
     keys = {EW.launch_key(e, f) for e in EW.EPILOGUES for f in EW.FORMS}
-    assert keys == set(GM.ELEMENTWISE) and set(GM.launches) == set(GM.TIERS) | keys
+    assert keys == set(GM.ELEMENTWISE) and set(GM.launches) == set(GM.TIERS) | keys | set(GM.SPARSE_QDENSE)
     assert EW.launch_key("dists", "jsmetr") == "elementwise_dists_js"
 
 

@@ -152,7 +152,7 @@ def test_groupmin_build_without_nvcc_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         GM.build()
     assert not (tmp_path / "build").exists()
-    assert GM.launches == dict.fromkeys(GM.TIERS + GM.ELEMENTWISE, 0)
+    assert GM.launches == dict.fromkeys(GM.TIERS + GM.ELEMENTWISE + GM.SPARSE_QDENSE, 0)
 
 
 # ---- the wiring of the three kernel libraries, with the library faked ----
@@ -179,7 +179,8 @@ def test_groupmin_sources_and_entries():
     with them and is no tier."""
     assert {n: p.name for n, p in GM.SOURCES.items()} == {
         "groupmin": "groupmin.cu", "groupmin_wgmma": "groupmin_wgmma.cu",
-        "groupmin_wgmma_i8": "groupmin_wgmma_i8.cu", "groupmin_elementwise": "groupmin_elementwise.cu"}
+        "groupmin_wgmma_i8": "groupmin_wgmma_i8.cu", "groupmin_elementwise": "groupmin_elementwise.cu",
+        "sparse_qdense": "sparse_qdense.cu"}
     assert all(p.exists() for p in GM.SOURCES.values())
     assert not (GM.INCLUDE_DIR / "groupmin_mma.cu").exists()
     assert GM._ENTRY == {

@@ -137,13 +137,13 @@ def test_fused_scan_does_not_depend_on_its_chunk(kind):
 
 def test_plan_chunk_is_tpu_knn_s():
     """NAPP plans with tpu_knn's chunk whatever the port's own: 256 rows
-    for a sparse space (the port's preferred chunk is 4096 on the card),
+    for a sparse space (the port's preferred chunk is 4080 on the card),
     8192 for a dense one."""
     sp = tpu_knn_torch.core.registry.create_space("cosinesimil_sparse", None, device="cpu")
     dn = tpu_knn_torch.core.registry.create_space("l2", {"dim": 4}, device="cpu")
     assert TN.plan_chunk(sp) == 256 and TN.plan_chunk(dn) == 8192
     sp.device = torch.device("cuda")  # the chunk a card would prefer, without a card
-    assert sp.preferred_chunk == 4096 and TN.plan_chunk(sp) == 256
+    assert sp.preferred_chunk == 4080 and TN.plan_chunk(sp) == 256
 
 
 def test_gather_covers_the_fused_scan_at_full_budget():

@@ -28,7 +28,7 @@ index and the gather route is tpu_knn's on both devices (256 rows for a
 sparse space, else the space's preferred chunk, 8192 by default), because
 ``keep`` depends on it; the streaming passes whose result does not depend
 on the chunk (the fused kNN scan and both range passes) run over the
-space's own preferred chunk on the device (4096 sparse rows on the card)
+space's own preferred chunk on the device (4080 sparse rows on the card)
 with a ragged last step. tpu_knn's ``SCANCOUNT_BACKEND`` switch and its
 packed-transport entry points are not ported (A/B and tunnel residue).
 """

@@ -21,8 +21,9 @@ is held against on the card:
 The tier follows the input, as in the TPU kernel: int8 ``q``/``x`` run the
 int8 tier whatever ``precision`` says; f32 inputs run ``precision``. The
 spaces with no affine form have their own kernel,
-``csrc/groupmin_elementwise.cu`` (ops/elementwise.py), built here with the
-others.
+``csrc/groupmin_elementwise.cu`` (ops/elementwise.py), and so has the
+sparse scan, ``csrc/sparse_qdense.cu`` (ops/sparse.py), both built here
+with the others.
 
 Each source is compiled with ``nvcc`` into a shared library with a plain C
 interface on first use, keyed by a hash of its source, of every file the
@@ -58,6 +59,8 @@ SOURCES = {
     "groupmin_wgmma_i8": _PKG / "csrc" / "groupmin_wgmma_i8.cu",
     # the elementwise spaces' scan (ops/elementwise.py), built with the tiers
     "groupmin_elementwise": _PKG / "csrc" / "groupmin_elementwise.cu",
+    # the sparse scan through the densified query tables (ops/sparse.py)
+    "sparse_qdense": _PKG / "csrc" / "sparse_qdense.cu",
 }
 #: where a source's ``#include "..."`` is looked up after its own directory
 INCLUDE_DIR = _PKG / "csrc"
@@ -84,9 +87,12 @@ _SCRATCH_BYTES = {
 #: kernel form, as its launches are counted
 ELEMENTWISE = tuple(f"elementwise_{e}_{f}" for e in ("groupmin", "dists", "batched")
                     for f in ("l1", "linf", "lp", "js"))
+#: the sparse scan kernel's forms (ops/sparse.py ``qdense_dists``), as its
+#: launches are counted
+SPARSE_QDENSE = tuple(f"sparse_qdense_{f}" for f in ("negdot", "querynorm", "cosine", "angular", "jaccard"))
 #: kernel launches (CUDA tensors only): :func:`fused_groupmin`'s per tier,
-#: ops/elementwise.py's per instance
-launches = dict.fromkeys(TIERS + ELEMENTWISE, 0)
+#: ops/elementwise.py's per instance, ops/sparse.py's per form
+launches = dict.fromkeys(TIERS + ELEMENTWISE + SPARSE_QDENSE, 0)
 _launches_lock = threading.Lock()
 
 _libs: dict = {}

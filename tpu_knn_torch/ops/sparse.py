@@ -22,6 +22,11 @@ ships others for reasons of its own (the TPU arm each matches is named):
     contiguous row) and contract over nnz with one batched product
     (:func:`dot_qdense`, :func:`intersect_count_qdense`). tpu_knn's scan
     does the same with a [Q, V] table (dot_qdense, SPARSE_SCAN_QDENSE).
+    The scan's distances come from :func:`qdense_dists`: on the card one
+    launch of the hand-written kernel ``csrc/sparse_qdense.cu``, which
+    gathers, sums and applies the space's post (:func:`dot_post`) without
+    the [rows, nnz, Q] block; its plain version,
+    :func:`qdense_dists_reference`, is those two products and the post.
   * gathered candidates [B, K, nnz] (the graph's beam) look their elements
     up in each query's own row of a [B, V] table (:func:`gathered_dot`,
     :func:`gathered_found`). tpu_knn ships GATHER_SCORING="support", an
@@ -49,9 +54,13 @@ Every product runs at IEEE f32 (ops/distance.require_ieee_f32).
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..utils.rng import jax_normal
+from . import groupmin as GM
 from .distance import block_elems, require_ieee_f32
 
 #: Column padding sentinels (see module docstring)
@@ -337,6 +346,122 @@ def jaccard_from_counts(inter, alen, blen):
     support sizes (broadcast); 0 where both sets are empty."""
     union = alen + blen - inter
     return torch.where(union > 0, 1.0 - inter / torch.clamp_min(union, 1.0), 0.0)
+
+
+#: The forms of :func:`qdense_dists`, in the kernel's numbering: the dot
+#: spaces' posts (:func:`dot_post`) and Jaccard's
+QDENSE_FORMS = ("negdot", "querynorm", "cosine", "angular", "jaccard")
+#: the norm floor of the normalized forms (NormScalarProduct's)
+TINY = 1e-10
+
+
+def dot_post(form: str, dot, qn, xn):
+    """A dot space's distance from its dots and the query and row norms
+    (broadcast): ``negdot`` -dot, ``querynorm`` -dot/|q|, ``cosine``
+    max(0, 1 - cos), ``angular`` acos(clip(cos, -1, 1)), cos = dot /
+    max(|q||x|, TINY) (reference: src/distcomp_scalar.cc)."""
+    if form == "negdot":
+        return -dot
+    if form == "querynorm":
+        return -dot / torch.clamp_min(qn, TINY)
+    cos = dot / torch.clamp_min(qn * xn, TINY)
+    if form == "cosine":
+        return torch.clamp_min(1.0 - cos, 0.0)
+    if form == "angular":
+        return torch.arccos(torch.clamp(cos, -1.0, 1.0))
+    raise ValueError(f"unknown dot form {form!r}; known: {QDENSE_FORMS[:4]}")
+
+
+def qdense_dists_reference(form, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """Plain version of :func:`qdense_dists`: :func:`dot_qdense` (or
+    :func:`intersect_count_qdense` for ``jaccard``), then the form's post,
+    then ``pad``."""
+    if form == "jaccard":
+        d = jaccard_from_counts(intersect_count_qdense(table, xcol), qlen[:, None], xlen[None, :])
+    else:
+        xn = norms_from_vals(w)[None, :] if form in ("cosine", "angular") else None
+        d = dot_post(form, dot_qdense(table, xcol, w), None if qn is None else qn[:, None], xn)
+    return d + pad[None, :]
+
+
+def _check_qdense(form, table, xcol, w, qn, qlen, xlen, pad) -> None:
+    if form not in QDENSE_FORMS:
+        raise ValueError(f"qdense_dists: unknown form {form!r}; known: {list(QDENSE_FORMS)}")
+    if table.ndim != 2 or xcol.ndim != 2:
+        raise ValueError(f"qdense_dists needs table [V, Q] and xcol [C, nnz]; got {tuple(table.shape)}, "
+                         f"{tuple(xcol.shape)}")
+    (_, nq), (c, nnz) = table.shape, xcol.shape
+    want = {"table": (table, torch.float32, None), "xcol": (xcol, torch.int32, None),
+            "pad": (pad, torch.float32, (c,))}
+    if form == "jaccard":
+        want.update(qlen=(qlen, torch.int32, (nq,)), xlen=(xlen, torch.int32, (c,)))
+    else:
+        want["w"] = (w, torch.float32, (c, nnz))
+        if form != "negdot":
+            want["qn"] = (qn, torch.float32, (nq,))
+    for name, (t, dtype, shape) in want.items():
+        if t is None or t.dtype != dtype or t.device != table.device or (shape and tuple(t.shape) != shape):
+            got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
+            raise ValueError(f"qdense_dists {form}: {name} must be {dtype} {shape or ''} on {table.device}; "
+                             f"got {got}")
+
+
+def _qdense_launch(form, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """One launch of csrc/sparse_qdense.cu on a CUDA tensor; raises if the
+    tensors are not on the card or the launch is refused."""
+    if table.device.type != "cuda":
+        raise ValueError(f"qdense_dists: the kernel runs on a CUDA tensor; got one on {table.device}")
+    args = (table, xcol, w, qn, qlen, xlen, pad)
+    if any(t is not None and not t.is_contiguous() for t in args):
+        raise ValueError("qdense_dists: every tensor must be contiguous")
+    require_ieee_f32(table)
+    (v, nq), (c, nnz) = table.shape, xcol.shape
+    out = torch.empty((nq, c), dtype=torch.float32, device=table.device)
+    if nq == 0 or c == 0:
+        return out
+    lib = _qdense_lib()
+    ptr = [None if t is None else t.data_ptr() for t in args]
+    with torch.cuda.device(table.device):
+        stream = torch.cuda.current_stream(table.device).cuda_stream
+        err = lib.tk_sparse_qdense(QDENSE_FORMS.index(form), ptr[0], v, nq, ptr[1], ptr[2], c, nnz, *ptr[3:],
+                                   out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"sparse_qdense {form} kernel launch failed: {lib.tk_error_string(err).decode()} ({err})")
+    GM.count_launch(f"sparse_qdense_{form}")
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _qdense_lib():
+    """The kernel's library (built by ops/groupmin.py with the others), its
+    entry typed, once."""
+    lib = GM._load("sparse_qdense")
+    vp, i64, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.tk_sparse_qdense.argtypes = [ci, vp, i64, i64, vp, vp, i64, ci, vp, vp, vp, vp, vp, vp]
+    lib.tk_sparse_qdense.restype = ci
+    return lib
+
+
+def qdense_dists(form: str, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """Distances f32[Q, C] of a query batch against shared corpus rows
+    through the densified query table: ``post(sum_t table[col[r,t]-1, q]
+    w[r,t]) + pad[r]``.
+
+    ``table`` f32[V, Q] (:func:`densify_t`; a presence table for
+    ``jaccard``), ``xcol`` i32[C, nnz] (padding carries weight 0), ``w``
+    the corpus values f32[C, nnz] (the dot forms), ``qn`` the query norms
+    f32[Q] (``querynorm``, ``cosine``, ``angular``), ``qlen``/``xlen`` the
+    support sizes i32[Q]/[C] (``jaccard``), ``pad`` f32[C]; what a form
+    does not read may be None. ``form`` is one of :data:`QDENSE_FORMS`.
+
+    A CPU tensor runs :func:`qdense_dists_reference`. A CUDA tensor
+    launches ``csrc/sparse_qdense.cu`` (counted in ops/groupmin.py's
+    ``launches`` as ``sparse_qdense_{form}``) or raises; it never falls
+    back."""
+    _check_qdense(form, table, xcol, w, qn, qlen, xlen, pad)
+    if table.device.type == "cpu":
+        return qdense_dists_reference(form, table, xcol, w, qn, qlen, xlen, pad)
+    return _qdense_launch(form, table, xcol, w, qn, qlen, xlen, pad)
 
 
 def sketch_matrix(v_pad: int, dsk: int, seed: int, device="cpu") -> torch.Tensor:

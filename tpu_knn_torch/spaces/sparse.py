@@ -49,10 +49,15 @@ from ..ops import sparse as S
 from .base import Space
 from .dense import PAD_TERM
 
-_TINY = 1e-10
-
 #: Largest padded vocabulary of the densified query tables.
 VOCAB_DENSE_MAX = 65536
+#: Corpus rows a scan step scores on the card. The streaming top-k sorts
+#: [Q, k + chunk] a step, and up to k = 16 that stays within torch's
+#: in-block sort (rows of at most 4096): the 1M cell's 246 merges took 31.9
+#: ms against 64.9 ms for 245 of [512, 4106], the segmented sort
+#: (tools/sparse_scan_profile.py on an H100). Ties keep the lowest column
+#: whatever the chunk (ops/topk.streaming_smallest_k).
+CARD_CHUNK = 4080
 
 
 def _pack_csr(points: list[SparsePoint], n_pad: int, nnz_mult: int = 8, pad_col: int = S.PAD_X):
@@ -112,11 +117,10 @@ class SparseSpaceBase(Space):
     dist_kind = DistKind.FLOAT
     @property
     def preferred_chunk(self) -> int:
-        """Corpus rows a scan step scores: tpu_knn's 256 on the CPU, 4096 on
-        the card, where 256-row steps leave the scan bound by the host's
-        launch rate; the primitives bound their [Q, C, nnz] intermediates
-        in row blocks either way (ops/sparse.py)."""
-        return 256 if self.device.type == "cpu" else 4096
+        """Corpus rows a scan step scores: tpu_knn's 256 on the CPU,
+        :data:`CARD_CHUNK` on the card, where 256-row steps leave the scan
+        bound by the host's launch rate."""
+        return 256 if self.device.type == "cpu" else CARD_CHUNK
 
     #: tpu_knn's preferred chunk on every device: a method whose results
     #: depend on its chunk (NAPP's gather route) plans with it
@@ -274,22 +278,34 @@ class SparseSpaceBase(Space):
 class SparseDotBase(SparseSpaceBase):
     dense_dot_ok = True
     sketch_ok = True  # raw-value sketches: -<s_q,s_x> orders like -<q,x>
+    #: the space's post of its dots (ops/sparse.dot_post, qdense_dists)
+    qdense_form = ""
 
-    def _dot(self, qenc, xc):
-        """Dots f32[Q, C] against shared rows: the densified-table gather,
-        with the table built on the spot when the caller did not attach it;
-        the binary-search lookup when the corpus has no vocabulary gate."""
+    def densify_queries(self, qenc: dict, corpus: dict, scan: bool = False) -> dict:
+        """As the base class; a scan's table also brings the query norms
+        ``qnorm`` f32[Q], once a scan, not once a block."""
+        qenc = super().densify_queries(qenc, corpus, scan)
+        if scan and "q_dense_t" in qenc and "qnorm" not in qenc:
+            qenc = {**qenc, "qnorm": S.norms_from_vals(qenc["qval"])}
+        return qenc
+
+    def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
+        """Distances f32[Q, C] against shared rows: one ops/sparse
+        qdense_dists call through the densified query table (built on the
+        spot when the caller did not attach it), the hand-written kernel on
+        the card; the binary-search lookup when the corpus has no
+        vocabulary gate."""
         qenc = self.densify_queries(qenc, xc, scan=True)
         if "q_dense_t" in qenc:
-            return S.dot_qdense(qenc["q_dense_t"], xc["cols"], xc["x"])
-        return S.lookup_dot_blocked(qenc["qcol"], qenc["qval"], xc["cols"], xc["x"])
+            return S.qdense_dists(self.qdense_form, qenc["q_dense_t"], xc["cols"], xc["x"], qenc["qnorm"], None,
+                                  None, xc["pad"])
+        return super().block(qenc, xc, precision)
 
-    def _norm_dot(self, qenc, xc):
-        """dot / (|q| |x|) (NormScalarProduct; 0-norm rows give 0)."""
-        dot = self._dot(qenc, xc)
+    def _block_impl(self, qenc, xc):
+        dot = S.lookup_dot_blocked(qenc["qcol"], qenc["qval"], xc["cols"], xc["x"])
         qn = S.norms_from_vals(qenc["qval"])[:, None]
         xn = S.norms_from_vals(xc["x"])[None, :]
-        return dot / torch.clamp_min(qn * xn, _TINY)
+        return self._post_dot(dot, qn, xn)
 
     def _gathered_impl(self, qenc, rows, extra):
         cols = extra["cols"]
@@ -308,18 +324,13 @@ class SparseDotBase(SparseSpaceBase):
         bn = S.norms_from_vals(rows)[:, None, :]
         return self._post_dot(dot, an, bn)
 
-    def _block_impl(self, qenc, xc):
-        qn = S.norms_from_vals(qenc["qval"])[:, None]
-        xn = S.norms_from_vals(xc["x"])[None, :]
-        return self._post_dot(self._dot(qenc, xc), qn, xn)
-
     def _post_dot(self, dot, qn, xn):
         """The space's distance from the dot and the two norms (broadcast)."""
-        raise NotImplementedError
+        return S.dot_post(self.qdense_form, dot, qn, xn)
 
 
 def _unit_rows(val):
-    return val / torch.clamp_min(S.norms_from_vals(val), _TINY)[..., None]
+    return val / torch.clamp_min(S.norms_from_vals(val), S.TINY)[..., None]
 
 
 @register_space("cosinesimil_sparse")
@@ -329,6 +340,7 @@ class SparseCosineSpace(SparseDotBase):
     src/distcomp_scalar.cc:268-273)."""
 
     name = "cosinesimil_sparse"
+    qdense_form = "cosine"
 
     def _sketch_vals(self, col, val, length):
         # for a fixed query, 1 - <q,x>/(|q||x|) orders like -<q, x/|x|>
@@ -336,9 +348,6 @@ class SparseCosineSpace(SparseDotBase):
 
     def _sketch_post(self, s):
         return torch.clamp_min(1.0 + s, 0.0)  # s = -cos estimate
-
-    def _post_dot(self, dot, qn, xn):
-        return torch.clamp_min(1.0 - dot / torch.clamp_min(qn * xn, _TINY), 0.0)
 
 
 @register_space("cosinesimil_sparse_bin_fast")
@@ -353,6 +362,7 @@ class SparseAngularSpace(SparseDotBase):
     """acos(clip(dot/(|q||x|), -1, 1)) (reference: AngularDistance)."""
 
     name = "angulardist_sparse"
+    qdense_form = "angular"
 
     def _sketch_vals(self, col, val, length):
         return _unit_rows(val)
@@ -360,17 +370,12 @@ class SparseAngularSpace(SparseDotBase):
     def _sketch_post(self, s):
         return torch.arccos(torch.clamp(-s, -1.0, 1.0))
 
-    def _post_dot(self, dot, qn, xn):
-        return torch.arccos(torch.clamp(dot / torch.clamp_min(qn * xn, _TINY), -1.0, 1.0))
-
 
 @register_space("negdotprod_sparse")
 @register_space("negdotprod_sparse_fast")
 class SparseNegDotSpace(SparseDotBase):
     name = "negdotprod_sparse"
-
-    def _post_dot(self, dot, qn, xn):
-        return -dot
+    qdense_form = "negdot"
 
 
 @register_space("negdotprod_sparse_bin_fast")
@@ -386,9 +391,7 @@ class SparseQueryNormNegDotSpace(SparseDotBase):
     argument only (reference: src/distcomp_scalar.cc:64-79)."""
 
     name = "querynorm_negdotprod_sparse"
-
-    def _post_dot(self, dot, qn, xn):
-        return -dot / torch.clamp_min(qn, _TINY)
+    qdense_form = "querynorm"
 
 
 # ---------------- Lp family ----------------
@@ -481,15 +484,21 @@ class SparseJaccardSpace(SparseSpaceBase):
     def _qdense_values(self, qval):
         return torch.ones_like(qval)
 
-    def _inter(self, qenc, xc):
+    def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
+        """Distances f32[Q, C] against shared rows: one ops/sparse
+        qdense_dists call through the densified presence table (the
+        hand-written kernel on the card); the binary-search lookup when
+        the corpus has no vocabulary gate."""
         qenc = self.densify_queries(qenc, xc, scan=True)
         if "q_dense_t" in qenc:
-            return S.intersect_count_qdense(qenc["q_dense_t"], xc["cols"])
-        return S.lookup_dot_blocked(qenc["qcol"], torch.ones_like(qenc["qval"]), xc["cols"],
-                                    S.real_slots(xc["cols"]))
+            return S.qdense_dists("jaccard", qenc["q_dense_t"], xc["cols"], None, None, qenc["qlen"], xc["len"],
+                                  xc["pad"])
+        return super().block(qenc, xc, precision)
 
     def _block_impl(self, qenc, xc):
-        return S.jaccard_from_counts(self._inter(qenc, xc), qenc["qlen"][:, None], xc["len"][None, :])
+        inter = S.lookup_dot_blocked(qenc["qcol"], torch.ones_like(qenc["qval"]), xc["cols"],
+                                     S.real_slots(xc["cols"]))
+        return S.jaccard_from_counts(inter, qenc["qlen"][:, None], xc["len"][None, :])
 
     def _gathered_impl(self, qenc, rows, extra):
         cols = extra["cols"]
