@@ -195,10 +195,12 @@ phases 4 and 6, before phase 7 rebuilds phase 4's index):
     jaccard) against its plain version at (a)'s and (c)'s chunk shapes
     (512 x 4080 x 64, vocab 30,080 and 60,032; the 0/1 forms and jaccard
     equal, the others within rtol 5e-3), its time beside the plain
-    version's, torch.sparse.mm's of the dots alone and its bound, over (c)'s
-    whole corpus too, and an edge sweep (Q 1-512, C 1-1000, rows of 1-200
-    slots, empty, zero-norm and out-of-vocabulary rows, a table off a
-    16-byte boundary); (d) at 5,000 rows every
+    version's, torch.sparse.mm's of the dots alone and its bound (beside
+    the dense-table gather's), over (c)'s whole corpus too, at a dense-table
+    shape (vocab 1,024, nnz 64, 100,000 rows), and an edge sweep (Q
+    1-4096, C 1-1000, rows of 1-200 slots, empty, zero-norm, +-inf and NaN
+    rows, out-of-vocabulary query ids, id 1 in every query, corpus arrays
+    off a 16-byte boundary); (d) at 5,000 rows every
     sparse name's kNN and range against its f64 oracle, HNSW by exact waves
     (sketchDim=0, moved here from 100,000 rows, its wave phases timed),
     with sketchQuery=1 and with exactPost=1 and exactShrink=1, l2_sparse
@@ -2355,7 +2357,9 @@ class _PlainGuard:
             real = getattr(mod, fn)
 
             def spy(*args, _real=real, **kw):
-                if not _PlainGuard._paused and any(isinstance(a, torch.Tensor) and a.is_cuda for a in args):
+                # a tensor or the sparse scan's postings on the card
+                if not _PlainGuard._paused and any(getattr(getattr(a, "device", None), "type", None) == "cuda"
+                                                   for a in args):
                     self.count += 1
                 return _real(*args, **kw)
 
@@ -2378,7 +2382,8 @@ class _PlainGuard:
 
 
 #: the sparse scan's plain arithmetic (ops/sparse.py), which no run of phases 18-20 calls on the card
-SPARSE_PLAIN = (("sparse", "qdense_dists_reference"), ("sparse", "dot_qdense"), ("sparse", "intersect_count_qdense"))
+SPARSE_PLAIN = (("sparse", "qdense_dists_reference"), ("sparse", "postings_table"), ("sparse", "dot_qdense"),
+                ("sparse", "intersect_count_qdense"))
 
 
 #: the batched sweep's (Cq, K): Cq 1, 5 and 40 against K 1, 37 and 300
@@ -3088,108 +3093,240 @@ SQ_CASES = (("negdot", "negdot", False), ("querynorm", "querynorm", False), ("co
             ("jaccard", "jaccard", True))
 
 
-def _sq_bound_ms(elements: int, nq: int, v: int, rows: int):
+def _sq_products(post, xcol) -> int:
+    """The non-zero products of one launch: over the real corpus elements of ``xcol``, the queries
+    of ``post`` that hold each element's id (the records of its term in every tile)."""
+    import torch
+    from tpu_knn_torch.ops import sparse as S
+
+    real = (xcol >= 1) & (xcol < S.PAD_X)
+    term = (torch.clamp(xcol, 1, post.v).long() - 1)[real]
+    ptr = post.ptr.long()
+    return int((ptr[(term + 1) * post.tiles] - ptr[term * post.tiles]).sum())
+
+
+def _sq_bound_ms(elements: int, products: int, records: int, nq: int, v: int, rows: int):
     """(ms, by) of the least time for csrc/sparse_qdense.cu's work: each real corpus element's id
-    and value, the [V, Q] table, pad and the [Q, rows] output moved once at 3.35 TB/s, against one
-    multiply-add a (real element, query) pair at the 67 TFLOP/s FP32 peak."""
+    and value (8 B), the postings' records (8 B) and pointers, pad and the [Q, rows] output moved
+    once at 3.35 TB/s, against one multiply-add a non-zero product (a real element and a query that
+    holds its id) at the 67 TFLOP/s FP32 peak."""
+    from tpu_knn_torch.ops import sparse as S
+
+    tiles = max(1, -(-nq // S.POST_TILE))
+    nbytes = 8 * elements + 8 * records + 4 * (v * tiles + 1) + 4 * rows + 4 * nq * rows
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * products / PEAK_OPS["float32"]
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _sq_bound_dense_ms(elements: int, nq: int, v: int, rows: int):
+    """The bound of a gather of the dense table, printed beside it: the [V, Q] table read once
+    and one multiply-add a (real element, query) pair, zero or not."""
     nbytes = 8 * elements + 4 * v * nq + 4 * rows + 4 * nq * rows
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * elements * nq / PEAK_OPS["float32"]
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _sq_inputs(label, qenc, xc, binary: bool):
-    """(table, w, qn) of one check: the scan's own table, values and query norms, or their 0/1
-    forms (the _bin_fast names' encodings; Jaccard reads the presence table)."""
+    """(postings, w, qn) of one check: the scan's own postings, values and query norms, or their 0/1
+    forms (the _bin_fast names' encodings; Jaccard reads the presence values)."""
     from tpu_knn_torch.ops import sparse as S
 
     if label == "jaccard" or binary:
-        return (qenc["q_dense_t"] != 0).float(), (xc["x"] != 0).float(), S.norms_from_vals((qenc["qval"] != 0).float())
-    return qenc["q_dense_t"], xc["x"], qenc["qnorm"]
+        vals = (qenc["qval"] != 0).float()
+        return S.postings(qenc["qcol"], vals, qenc["q_post"].v), (xc["x"] != 0).float(), S.norms_from_vals(vals)
+    return qenc["q_post"], xc["x"], qenc["qnorm"]
 
 
 def _sq_compare(label, got, ref, exact: bool) -> float:
-    """The kernel's distances against its plain version's: equal for the integer sums, else within
-    rtol 5e-3 and atol 1e-5 (an angular distance also passes with its cosine within 1e-6, the
-    repository's rule: arccos is ill-conditioned near 0). Returns max |got - ref|."""
+    """The kernel's distances against its plain version's: NaN where the plain version has NaN (a
+    non-finite corpus weight), elsewhere equal for the integer sums, else within rtol 5e-3 and atol
+    1e-5 (an angular distance also passes with its cosine within 1e-6, the repository's rule:
+    arccos is ill-conditioned near 0). Returns max |got - ref| over the finite cells."""
     import torch
 
     _require(got.shape == ref.shape, lambda: f"{label}: shape {tuple(got.shape)} against {tuple(ref.shape)}")
+    nan = torch.isnan(ref)
+    _require(bool(torch.equal(torch.isnan(got), nan)),
+             lambda: f"{label}: NaN in {int((torch.isnan(got) != nan).sum())} cells where the plain version differs")
     if exact:
-        _require(bool(torch.equal(got, ref)), lambda: f"{label}: the kernel differs from its plain version "
-                                                      f"in {int((got != ref).sum())} cells")
+        _require(bool(torch.equal(got[~nan], ref[~nan])),
+                 lambda: f"{label}: the kernel differs from its plain version in {int((got != ref).sum())} cells")
         return 0.0
-    ok = torch.isclose(got, ref, rtol=5e-3, atol=1e-5)
+    ok = torch.isclose(got, ref, rtol=5e-3, atol=1e-5) | nan
     if "angular" in label:
         ok |= (torch.cos(got.double()) - torch.cos(ref.double())).abs() <= 1e-6
     _require(bool(ok.all()), lambda: f"{label}: {int((~ok).sum())} cells beyond rtol 5e-3 of the plain version, "
-                                     f"max |diff| {float((got - ref).abs().max()):.3g}")
-    return float((got - ref).abs().max())
+                                     f"max |diff| {float((got - ref)[~nan].abs().max()):.3g}")
+    diff = (got - ref)[torch.isfinite(ref)].abs()
+    return float(diff.max()) if diff.numel() else 0.0
+
+
+def _sq_check_forms(label, qenc, xc) -> dict:
+    """Every case of SQ_CASES against the plain version on one query batch and row slice; max |diff|."""
+    from tpu_knn_torch.ops import sparse as S
+
+    errs = {}
+    with _PlainGuard.paused():
+        for case, form, binary in SQ_CASES:
+            post, w, qn = _sq_inputs(case, qenc, xc, binary)
+            args = (form, post, xc["cols"], w, qn, qenc["qlen"], xc["len"], xc["pad"])
+            errs[case] = _sq_compare(f"sparse kernel {label} {case}", S.qdense_dists(*args),
+                                     S.qdense_dists_reference(*args), binary or form == "jaccard")
+    return errs
+
+
+def _device_ms(fn, key: str):
+    """The device time (ms) of the kernels whose name holds ``key`` in one call of ``fn`` (after a
+    warm one), from torch.profiler's CUDA trace: a loop of short launches that the host enqueues
+    slower than the card runs them is timed by its own events at the host's rate. None when the
+    trace holds no such kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0)) for e in prof.key_averages()
+             if key in e.key)
+    return us / 1e3 if us else None
+
+
+def _sq_library_ms(post, xc, chunk: int) -> float:
+    """torch.sparse.mm of the dots alone (CSR rows times the densified [V, Q] table, which the scan
+    never builds), CUDA events, mean of 20."""
+    import torch
+    from tpu_knn_torch.ops import sparse as S
+
+    real = (xc["cols"] >= 1) & (xc["cols"] < S.PAD_X)
+    crow = torch.cat([real.new_zeros(1, dtype=torch.int64), torch.cumsum(real.sum(1), 0)])
+    with _PlainGuard.paused():
+        table = S.postings_table(post)
+    xs = torch.sparse_csr_tensor(crow, xc["cols"][real].long() - 1, xc["x"][real], size=(chunk, post.v))
+    return _cuda_ms(lambda: torch.sparse.mm(xs, table), 20)
 
 
 def _sq_cell(smi, label, ix, queries, full: bool) -> dict:
     """csrc/sparse_qdense.cu at one cell's scan chunk (its first chunk of rows against the cell's
-    512 queries) in every form against its plain version, with the kernel's, the plain version's
-    and ``torch.sparse.mm``'s times at that shape (the dots alone, CSR rows times the table), and
-    its bound; with ``full``, also both over every chunk of the cell's corpus, the kernel's own
-    launches of the scan."""
-    import torch
+    queries) in every form against its plain version, with the kernel's, the plain version's and
+    ``torch.sparse.mm``'s times at that shape (the dots alone, CSR rows times the densified table),
+    and its bound beside a dense-table gather's; with ``full``, also both over every chunk of the cell's corpus, the
+    kernel's own launches of the scan."""
     from tpu_knn_torch.ops import sparse as S
 
     space, data, chunk = ix.method.space, ix.method.data, ix.method._chunk
     xc = space.slice_data(data, 0, chunk)
     qenc = space.densify_queries(space.encode_queries(queries), xc, scan=True)
-    nq, v = qenc["q_dense_t"].shape[1], qenc["q_dense_t"].shape[0]
-    errs = {}
+    post = qenc["q_post"]
+    nq, v = post.nq, post.v
+    errs = _sq_check_forms(label, qenc, xc)
+    args = ("cosine", post, xc["cols"], xc["x"], qenc["qnorm"], None, None, xc["pad"])
     with _PlainGuard.paused():
-        for case, form, binary in SQ_CASES:
-            table, w, qn = _sq_inputs(case, qenc, xc, binary)
-            args = (form, table, xc["cols"], w, qn, qenc["qlen"], xc["len"], xc["pad"])
-            errs[case] = _sq_compare(f"sparse kernel {label} {case}", S.qdense_dists(*args),
-                                     S.qdense_dists_reference(*args), binary or form == "jaccard")
-        args = ("cosine", qenc["q_dense_t"], xc["cols"], xc["x"], qenc["qnorm"], None, None, xc["pad"])
         ms = _cuda_ms(lambda: S.qdense_dists(*args), 20)
         plain_ms = _cuda_ms(lambda: S.qdense_dists_reference(*args), 5)
     real = (xc["cols"] >= 1) & (xc["cols"] < S.PAD_X)
-    e = int(real.sum())
-    crow = torch.cat([real.new_zeros(1, dtype=torch.int64), torch.cumsum(real.sum(1), 0)])
-    xs = torch.sparse_csr_tensor(crow, xc["cols"][real].long() - 1, xc["x"][real], size=(chunk, v))
-    lib_ms = _cuda_ms(lambda: torch.sparse.mm(xs, qenc["q_dense_t"]), 20)
-    bound, by = _sq_bound_ms(e, nq, v, chunk)
+    e, prods, recs = int(real.sum()), _sq_products(post, xc["cols"]), int(post.ptr[-1])
+    lib_ms = _sq_library_ms(post, xc, chunk)
+    bound, by = _sq_bound_ms(e, prods, recs, nq, v, chunk)
+    bd, byd = _sq_bound_dense_ms(e, nq, v, chunk)
     out = {"shape": [nq, chunk, xc["cols"].shape[1], v], "max_abs_err": max(errs.values()), "ms": ms,
-           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": by}
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound, "bound_by": by, "products": prods,
+           "records": recs}
     print(f"[sparse] kernel {label}: {nq} queries x {chunk} rows x {xc['cols'].shape[1]} slots, vocab {v}, {e} "
-          f"elements; every form against its plain version (" + ", ".join(f"{c} {x:.3g}" for c, x in errs.items())
+          f"elements, {prods} non-zero products, {recs} query records; every form against its plain version ("
+          + ", ".join(f"{c} {x:.3g}" for c, x in errs.items())
           + f" max |diff|; the 0/1 forms and jaccard equal); cosine {ms:.4f} ms a launch (mean of 20), plain "
           f"{plain_ms:.4f} ms, torch.sparse.mm of the dots alone {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}, "
-          f"{bound / ms:.1%}); {smi}", flush=True)
+          f"{bound / ms:.1%}; a dense-table gather's, every pair's FMA and the table: {bd:.4f} ms, {byd}, "
+          f"{bd / ms:.1%}); {smi}", flush=True)
     if full:  # the scan's launches over every chunk of the corpus
-        table, qn, n_pad = qenc["q_dense_t"], qenc["qnorm"], data.ids.shape[0]
+        qn, n_pad = qenc["qnorm"], data.ids.shape[0]
         sl = [space.slice_data(data, s, chunk) for s in range(0, n_pad, chunk)]
 
         def scan(fn):
-            return lambda: [fn("cosine", table, x["cols"], x["x"], qn, None, None, x["pad"]) for x in sl]
+            return lambda: [fn("cosine", post, x["cols"], x["x"], qn, None, None, x["pad"]) for x in sl]
 
         with _PlainGuard.paused():
             out["full_ms"] = _cuda_ms(scan(S.qdense_dists), 5)
+            out["full_device_ms"] = _device_ms(scan(S.qdense_dists), "sparse_qdense")
             out["full_plain_ms"] = _cuda_ms(scan(S.qdense_dists_reference), 1)
         e_all = int(data.length.sum())
-        out["full_bound_ms"], out["full_bound_by"] = _sq_bound_ms(e_all, nq, v, n_pad)
-        out["full_elements"] = e_all
-        print(f"[sparse] kernel {label} over all {n_pad} rows ({len(sl)} launches, {e_all} elements): "
-              f"{out['full_ms']:.3f} ms (mean of 5), plain {out['full_plain_ms']:.3f} ms, bound "
-              f"{out['full_bound_ms']:.3f} ms ({out['full_bound_by']}, {out['full_bound_ms'] / out['full_ms']:.1%}); "
-              f"{smi}", flush=True)
+        p_all = sum(_sq_products(post, x["cols"]) for x in sl)
+        out["full_bound_ms"], out["full_bound_by"] = _sq_bound_ms(e_all, p_all, recs, nq, v, n_pad)
+        bd, byd = _sq_bound_dense_ms(e_all, nq, v, n_pad)
+        out["full_elements"], out["full_products"] = e_all, p_all
+        dev = out["full_device_ms"]
+        kern = dev or out["full_ms"]
+        print(f"[sparse] kernel {label} over all {n_pad} rows ({len(sl)} launches, {e_all} elements, {p_all} non-zero "
+              f"products): {out['full_ms']:.3f} ms by CUDA events through the wrapper (mean of 5), the kernel's device "
+              f"time {'not measured (no profiler trace)' if dev is None else f'{dev:.3f} ms (torch.profiler)'}, plain "
+              f"{out['full_plain_ms']:.3f} ms, bound {out['full_bound_ms']:.3f} ms ({out['full_bound_by']}, "
+              f"{out['full_bound_ms'] / kern:.1%}; a dense-table gather's {bd:.3f} ms, {byd}, {bd / kern:.1%}); {smi}",
+              flush=True)
+    return out
+
+
+def _sq_dense_cell(smi) -> dict:
+    """The dense-table shape, where most table cells are non-zero: sparse_like(100_512,
+    vocab=1_024, nnz=64, seed=0), 100,000 rows against 512 queries. Every form against its plain
+    version at the first 4080-row chunk, then the cosine kernel, its plain version and
+    torch.sparse.mm, one launch and over the 25 chunks of the corpus."""
+    import torch
+    from tpu_knn_torch import DataKind, Index
+    from tpu_knn_torch.eval.datasets import sparse_like
+    from tpu_knn_torch.ops import sparse as S
+
+    n, nq = 100_000, 512
+    pts = sparse_like(n + nq, vocab=1_024, nnz=64, seed=0)
+    ix = Index("cosinesimil_sparse", method="seq_search", data_type=DataKind.SPARSE, device="cuda")
+    ix.add_sparse_batch(pts[:n], ids=range(n))
+    ix.build_index()
+    space, data, chunk = ix.method.space, ix.method.data, ix.method._chunk
+    xc = space.slice_data(data, 0, chunk)
+    qenc = space.densify_queries(space.encode_queries(pts[n:]), xc, scan=True)
+    post, qn = qenc["q_post"], qenc["qnorm"]
+    errs = _sq_check_forms("dense table", qenc, xc)
+    sl = [space.slice_data(data, s, chunk) for s in range(0, data.ids.shape[0], chunk)]
+    e_all = int(data.length.sum())
+    p_all = sum(_sq_products(post, x["cols"]) for x in sl)
+
+    def scan(fn):
+        return lambda: [fn("cosine", post, x["cols"], x["x"], qn, None, None, x["pad"]) for x in sl]
+
+    with _PlainGuard.paused():
+        one = _cuda_ms(lambda: S.qdense_dists("cosine", post, xc["cols"], xc["x"], qn, None, None, xc["pad"]), 20)
+        full = _cuda_ms(scan(S.qdense_dists), 5)
+        full_dev = _device_ms(scan(S.qdense_dists), "sparse_qdense")
+        full_plain = _cuda_ms(scan(S.qdense_dists_reference), 1)
+        table = S.postings_table(post)
+    lens = data.length[:n].long()
+    crow = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    real = (data.col[:n] >= 1) & (data.col[:n] < S.PAD_X)
+    xs = torch.sparse_csr_tensor(crow, data.col[:n][real].long() - 1, data.val[:n][real], size=(n, post.v))
+    lib = _cuda_ms(lambda: torch.sparse.mm(xs, table), 5)
+    bound, by = _sq_bound_ms(e_all, p_all, int(post.ptr[-1]), nq, post.v, data.ids.shape[0])
+    out = {"ms": one, "full_ms": full, "full_device_ms": full_dev, "full_plain_ms": full_plain, "library_ms": lib,
+           "bound_ms": bound, "bound_by": by, "density": p_all / (e_all * nq), "max_abs_err": max(errs.values())}
+    print(f"[sparse] kernel dense table: sparse_like(100512, vocab=1024, nnz=64), {data.ids.shape[0]} rows ({e_all} "
+          f"elements) x {nq} queries, {p_all} non-zero products ({out['density']:.1%} of the pairs); every form "
+          f"against its plain version (" + ", ".join(f"{c} {x:.3g}" for c, x in errs.items()) + " max |diff|); "
+          f"cosine {one:.4f} ms a 4080-row launch (mean of 20); over the {len(sl)} launches {full:.3f} ms (mean of "
+          f"5; device time {'not measured' if full_dev is None else f'{full_dev:.3f} ms'}), plain {full_plain:.3f} "
+          f"ms, torch.sparse.mm of the dots alone {lib:.3f} ms, bound {bound:.3f} ms ({by}, "
+          f"{bound / (full_dev or full):.1%}); {smi}", flush=True)
     return out
 
 
 def _sq_edge_sweep() -> tuple:
     """csrc/sparse_qdense.cu against its plain version in every form at the edges: Q in {1, 7,
-    130, 512} (130 and 7 leave a ragged query tile, 7 and 1 the lanes' 4-query vectors), C in {1,
-    33, 1000} (ragged row tiles), rows of at most 1, 64 and 200 slots (several 64-slot stages)
-    with empty rows, zero-norm rows (real ids of value 0) and padding inside a stage, an empty
-    query and query ids beyond the vocabulary, vocabularies of 128 and 1,024 ids, and each table
-    also at an address 4 bytes off a 16-byte boundary (the kernel's scalar loads). Returns (runs,
-    max |kernel - plain| over the non-integer forms)."""
+    130, 512, 4096} (130 and 7 leave a ragged 128-query tile, 4096 has 32 tiles), C in {1, 33,
+    1000} (ragged 32-row groups), rows of at most 1, 64 and 200 slots (several 8-slot loads) with
+    empty rows, zero-norm rows (real ids of value 0), rows holding a +inf, -inf or NaN value (NaN
+    for every query that lacks its id), an empty query, query ids beyond the vocabulary and id 1 in
+    every query (a run of every query of a tile), vocabularies of 128 and 1,024 ids, and the corpus
+    arrays also 4 bytes off a 16-byte boundary (the kernel's scalar loads). Returns (runs, max
+    |kernel - plain| over the finite cells of the non-integer forms)."""
     import torch
     from tpu_knn_torch.core.dataset import SparsePoint
     from tpu_knn_torch.ops import sparse as S
@@ -3199,38 +3336,46 @@ def _sq_edge_sweep() -> tuple:
     dev = torch.device("cuda")
     runs, worst = 0, 0.0
 
-    def points(n, nnz, universe, empty_every, zero_every):
+    def points(n, nnz, universe, empty_every, zero_every, nonfinite=False, first=False):
         pts = []
         for r in range(n):
             m = 0 if r % empty_every == 1 else (nnz if r % 2 else int(rng.integers(1, nnz + 1)))
             ids = np.sort(rng.choice(np.arange(1, universe + 1), size=min(m, universe), replace=False))
+            if first and r % empty_every != 1 and (not ids.size or ids[0] != 1):
+                ids = np.concatenate([[1], ids[:-1] if ids.size == m else ids])
             vals = rng.standard_normal(ids.size).astype(np.float32)
             if r % zero_every == 3:
                 vals[:] = 0.0
+            if nonfinite and ids.size and r % 17 == 5:
+                vals[rng.integers(ids.size)] = (np.inf, -np.inf, np.nan)[r % 3]
             pts.append(SparsePoint(ids.astype(np.int32), vals))
         return pts
+
+    def offset(t):  # the same values 4 bytes off a 16-byte boundary
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
 
     with _PlainGuard.paused():
         for nnz in (1, 64, 200):
             for v in (128, 1024):
-                xcol, xval, xlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(points(1000, nnz, v, 7, 11), 1000))
-                # the queries' ids run past the vocabulary: densify_t drops them, as the scan does
-                qp = points(512, min(nnz + 8, 80), v + 64, 9, 13)
-                qcol, qval, qlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(qp, 512, pad_col=S.PAD_Q))
+                xp = points(1000, nnz, v, 7, 11, nonfinite=True)
+                xcol, xval, xlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(xp, 1000))
+                # the queries' ids run past the vocabulary (the postings drop them, as the scan does);
+                # id 1 in every non-empty query
+                qp = points(4096, min(nnz + 8, 80), v + 64, 9, 13, first=True)
+                qcol, qval, qlen = (torch.from_numpy(a).to(dev) for a in _pack_csr(qp, 4096, pad_col=S.PAD_Q))
                 pad = torch.zeros(1000, device=dev)
                 pad[990:] = 1e30
-                for nq in (1, 7, 130, 512):
+                for nq in (1, 7, 130, 512, 4096):
                     for c in (1, 33, 1000):
                         for case, form, binary in SQ_CASES:
                             qv = (qval[:nq] != 0).float() if binary or form == "jaccard" else qval[:nq]
                             xv = (xval[:c] != 0).float() if binary else xval[:c]
+                            post = S.postings(qcol[:nq], qv, v)
                             for off in (0, 1):
-                                t = S.densify_t(qcol[:nq], qv, v)
-                                if off:  # the same table 4 bytes off a 16-byte boundary
-                                    buf = torch.empty(t.numel() + 1, device=dev)
-                                    buf[1:] = t.reshape(-1)
-                                    t = buf[1:].view(t.shape)
-                                args = (form, t, xcol[:c], xv, S.norms_from_vals(qv), qlen[:nq], xlen[:c], pad[:c])
+                                xc_, xv_ = (offset(xcol[:c]), offset(xv)) if off else (xcol[:c], xv)
+                                args = (form, post, xc_, xv_, S.norms_from_vals(qv), qlen[:nq], xlen[:c], pad[:c])
                                 err = _sq_compare(f"sparse kernel edge sweep {case} nnz={nnz} V={v} Q={nq} C={c} "
                                                   f"offset={off}", S.qdense_dists(*args),
                                                   S.qdense_dists_reference(*args), binary or form == "jaccard")
@@ -3449,15 +3594,16 @@ def _phase_sparse(smi):
     enc_s = time.perf_counter() - tb
 
     # ---- the kernel, csrc/sparse_qdense.cu: every form against its plain version at (a)'s and
-    # (c)'s chunk shapes and over (c)'s whole corpus, then the edge sweep ----
+    # (c)'s chunk shapes and over (c)'s whole corpus, at a dense-table shape, then the edge sweep ----
     t0 = time.perf_counter()
     out["kernel"] = {"config5": _sq_cell(smi, "config 5", ex, queries, False),
-                     "1m": _sq_cell(smi, "1M", big, qq3, True)}
+                     "1m": _sq_cell(smi, "1M", big, qq3, True), "dense": _sq_dense_cell(smi)}
     runs, worst = _sq_edge_sweep()
     out["kernel"]["sweep"] = {"runs": runs, "max_abs_err": worst}
-    print(f"[sparse] kernel edge sweep: {runs} runs (Q 1-512, C 1-1000, rows of 1-200 slots, empty, zero-norm and "
-          f"out-of-vocabulary rows, tables off a 16-byte boundary) each equal to or within rtol 5e-3 of the plain "
-          f"version, max |diff| {worst:.3g}; the kernel step {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[sparse] kernel edge sweep: {runs} runs (Q 1-4096, C 1-1000, rows of 1-200 slots, empty, zero-norm, "
+          f"+-inf and NaN rows, out-of-vocabulary query ids, id 1 in every query, corpus arrays off a 16-byte "
+          f"boundary) each equal to or within rtol 5e-3 of the plain version, NaN where it is, max |diff| "
+          f"{worst:.3g}; the kernel step {time.perf_counter() - t0:.1f} s", flush=True)
     del ex
 
     # ---- (c) the main path: the 1M scan, every count set to 0 just before it ----
@@ -3470,24 +3616,26 @@ def _phase_sparse(smi):
     _require(launches3["sparse_qdense_cosine"] == 6 * chunks3 and sum(launches3.values()) == 6 * chunks3,
              lambda: f"(c): kernel launches {launches3}, {6 * chunks3} expected")
     # the wall's split: the kernel's launches of one scan (above) and its top-k merges, each by CUDA
-    # events; the rest is the table, the host's launches and the final copy
+    # events; the rest is the postings, the host's launches and the final copy
     blk = torch.rand((nq, big.method._chunk), device="cuda")
     fd = torch.full((nq, k), float("inf"), device="cuda")
     fi = torch.full((nq, k), -1, dtype=torch.int64, device="cuda")
     cols = torch.arange(big.method._chunk, device="cuda").expand(nq, -1)
     merge_ms = _cuda_ms(lambda: [T.merge_topk(fd, fi, blk, cols, k) for _ in range(chunks3)], 3)
-    kern_ms = out["kernel"]["1m"]["full_ms"]
+    kern_ms = out["kernel"]["1m"]["full_device_ms"] or out["kernel"]["1m"]["full_ms"]
     del blk, fd, fi, cols
     t0 = time.perf_counter()
     o3, ob3 = _sparse_f64("cosine", _csr64(qq3[:64], vocab3), _csr64(c3, vocab3))
     diff3, err3 = _check_sparse_knn("scan cosinesimil_sparse 1M", i3[:64], d3[:64], o3, ob3, k)
     oracle_s = time.perf_counter() - t0
     # the least time for the scan's work: the corpus elements (id and value)
-    # and the query block read once, the top-k written once, against one
-    # multiply-add a query and corpus element at the FP32 peak
+    # and the query records read once, the top-k written once, against one
+    # multiply-add a non-zero product (an element and a query holding its id)
+    # at the FP32 peak
     lens = np.fromiter((len(p[0]) for p in c3), np.int64, n3)
     nnz3 = int(lens.sum())
-    bound_ms = max((8 * nnz3 + 4 * nq * vocab3 + 8 * nq * k) / 3.35e12, 2 * nq * nnz3 / 67e12) * 1e3
+    k1m = out["kernel"]["1m"]
+    bound_ms = max((8 * nnz3 + 8 * k1m["records"] + 8 * nq * k) / 3.35e12, 2 * k1m["full_products"] / 67e12) * 1e3
     # the library call for the dots alone: cuSPARSE's CSR times dense
     crow = torch.from_numpy(np.concatenate([[0], np.cumsum(lens)])).cuda()
     xcol = torch.from_numpy(np.concatenate([p[0] for p in c3]).astype(np.int64) - 1).cuda()
@@ -3504,7 +3652,7 @@ def _phase_sparse(smi):
           f"allocated {peak3:.3f} GiB; sparse_qdense_cosine launched {launches3['sparse_qdense_cosine']} times in 6 "
           f"scans ({chunks3} chunks of {big.method._chunk} rows each), no other kernel; of the wall the kernel "
           f"{kern_ms:.3f} ms and the {chunks3} top-k merges {merge_ms:.3f} ms (CUDA events), the rest "
-          f"{med3 * 1e3 - kern_ms - merge_ms:.3f} ms (the table, the host's launches, the copy back); bound "
+          f"{med3 * 1e3 - kern_ms - merge_ms:.3f} ms (the postings, the host's launches, the copy back); bound "
           f"{bound_ms:.3f} ms; library torch.sparse.mm of the dots alone {lib_ms:.3f} ms (CUDA events, mean of 5); "
           f"64 queries against the f64 oracle ({oracle_s:.1f} s): {diff3} ids differ on ties, max |dist - f64| "
           f"{err3:.3g}; {smi}", flush=True)
@@ -5187,16 +5335,17 @@ def main() -> int:
             "replaces": replaces[key.split("_")[1]], "launches": r["launches"], "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
-    # the sparse scan's kernel over the 1M cell's whole corpus (its 245 launches of one scan);
-    # library_ms: torch.sparse.mm of the dots alone over the same rows
+    # the sparse scan's kernel over the 1M cell's whole corpus (its 246 launches of one scan; ms its
+    # device time where the profiler traced it); library_ms: torch.sparse.mm of the dots alone over
+    # the same rows
     sq = sn["kernel"]["1m"]
     record["kernels"].append({
         "name": "sparse_qdense", "route": "cuda", "source": "tpu_knn_torch/csrc/sparse_qdense.cu",
         "replaces": "tpu_knn/ops/sparse.py:128 dot_qdense, :149 intersect_count_qdense (XLA gather + einsum)",
         "launches": sn["scan_1m"]["launches"],
         "max_abs_err": max(sq["max_abs_err"], sn["kernel"]["config5"]["max_abs_err"],
-                           sn["kernel"]["sweep"]["max_abs_err"]),
-        "ms": sq["full_ms"], "plain_ms": sq["full_plain_ms"], "bound_ms": sq["full_bound_ms"],
+                           sn["kernel"]["dense"]["max_abs_err"], sn["kernel"]["sweep"]["max_abs_err"]),
+        "ms": sq["full_device_ms"] or sq["full_ms"], "plain_ms": sq["full_plain_ms"], "bound_ms": sq["full_bound_ms"],
         "bound_by": sq["full_bound_by"], "library_ms": sn["scan_1m"]["library_ms"]})
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """The sparse exact scan of the dot spaces and Jaccard (ops/sparse.py
 ``qdense_dists``, csrc/sparse_qdense.cu on the card) on the CPU, held
-against tpu_knn on the same seeded numpy inputs: its plain version and an
-f32 model of the kernel's arithmetic against tpu_knn's ``space.block`` on
-its densified-table route, the wrapper's contract, and the port's
+against tpu_knn on the same seeded numpy inputs: its plain version (on the
+table that the batch's postings hold) and an f32 model of the densified
+table's slot-order arithmetic against tpu_knn's ``space.block`` on its
+densified-table route, the wrapper's contract, and the port's
 ``seq_search`` kNN and range against tpu_knn's.
 
 The inputs are ``sparse_like`` rows with edge rows appended: empty rows,
@@ -75,15 +76,21 @@ def encode_both(name, xs, qs):
     ref = np.asarray(js.block(js.encode_queries(qs), js.slice_data(jd, 0, n_pad)))
     xc = ts.slice_data(td, 0, n_pad)
     qenc = ts.densify_queries(ts.encode_queries(qs), xc, scan=True)
-    assert "q_dense_t" in qenc  # the densified-table route
+    assert "q_post" in qenc  # the postings route
     return ts, qenc, xc, ref
 
 
 def qdense_args(name, qenc, xc):
     form = NAMES[name][0]
     qn = S.norms_from_vals(qenc["qval"])
-    return (form, qenc["q_dense_t"], xc["cols"], None if form == "jaccard" else xc["x"], qn, qenc["qlen"],
+    return (form, qenc["q_post"], xc["cols"], None if form == "jaccard" else xc["x"], qn, qenc["qlen"],
             xc["len"], xc["pad"])
+
+
+def table_args(args):
+    """``args`` of :func:`qdense_args` with the postings' densified table in their place: the
+    inputs of :func:`kernel_model`."""
+    return (args[0], S.postings_table(args[1])) + tuple(args[2:])
 
 
 def kernel_model(form, table, xcol, w, qn, qlen, xlen, pad):
@@ -130,7 +137,7 @@ def test_reference_and_kernel_model_match_tpu_knn(name):
     plain = S.qdense_dists_reference(*args)
     assert plain.shape == (len(qs), xc["cols"].shape[0])
     assert_matches(name, plain.numpy(), ref)
-    assert_matches(name, kernel_model(*args).numpy(), ref)
+    assert_matches(name, kernel_model(*table_args(args)).numpy(), ref)
     np.testing.assert_array_equal(ts.block(qenc, xc).numpy(), plain.numpy())
     assert np.all(plain.numpy()[:, len(xs):] >= 1e29)
 
@@ -160,9 +167,8 @@ def test_kernel_model_at_short_and_long_rows(nnz):
     qn = S.norms_from_vals(qval)
     for form in S.QDENSE_FORMS:
         vals = torch.ones_like(qval) if form == "jaccard" else qval
-        table = S.densify_t(qcol, vals, 640)
-        args = (form, table, xcol, xval, qn, qlen, xlen, pad)
-        got, ref = kernel_model(*args).numpy(), S.qdense_dists_reference(*args).numpy()
+        args = (form, S.postings(qcol, vals, 640), xcol, xval, qn, qlen, xlen, pad)
+        got, ref = kernel_model(*table_args(args)).numpy(), S.qdense_dists_reference(*args).numpy()
         if form == "jaccard":
             np.testing.assert_array_equal(got, ref)
         elif form == "angular":
@@ -197,29 +203,30 @@ def test_qdense_dists_on_the_cpu_never_builds(monkeypatch):
     with pytest.raises(ValueError, match="CUDA tensor"):
         S._qdense_launch(*args)
     assert GM.launches == before
-    form, table, xcol, w, qn, qlen, xlen, pad = args
+    form, post, xcol, w, qn, qlen, xlen, pad = args
     with pytest.raises(ValueError, match="unknown form"):
-        S.qdense_dists("l2", table, xcol, w, qn, qlen, xlen, pad)
+        S.qdense_dists("l2", post, xcol, w, qn, qlen, xlen, pad)
     with pytest.raises(ValueError, match="xcol"):
-        S.qdense_dists(form, table, xcol.long(), w, qn, qlen, xlen, pad)
+        S.qdense_dists(form, post, xcol.long(), w, qn, qlen, xlen, pad)
     with pytest.raises(ValueError, match="qn"):
-        S.qdense_dists(form, table, xcol, w, None, qlen, xlen, pad)
+        S.qdense_dists(form, post, xcol, w, None, qlen, xlen, pad)
     with pytest.raises(ValueError, match="xlen"):
-        S.qdense_dists("jaccard", table, xcol, None, None, qlen, xlen.long(), pad)
+        S.qdense_dists("jaccard", post, xcol, None, None, qlen, xlen.long(), pad)
     with pytest.raises(ValueError, match="pad"):
-        S.qdense_dists(form, table, xcol, w, qn, qlen, xlen, pad[:-1])
-    with pytest.raises(ValueError, match="table"):
-        S.qdense_dists(form, table.double(), xcol, w, qn, qlen, xlen, pad)
+        S.qdense_dists(form, post, xcol, w, qn, qlen, xlen, pad[:-1])
+    with pytest.raises(ValueError, match="Postings"):
+        S.qdense_dists(form, S.postings_table(post), xcol, w, qn, qlen, xlen, pad)
 
 
 def test_kernel_source_agrees_with_the_wrapper():
     """The source's form numbering is QDENSE_FORMS', its padding sentinel
-    PAD_X, its launches counted under one key a form, and it is built with
-    the other kernels."""
+    PAD_X, its query tile the postings', its launches counted under one key
+    a form, and it is built with the other kernels."""
     src = GM.SOURCES["sparse_qdense"].read_text()
     enum = re.search(r"enum Form \{([^}]*)\}", src).group(1)
     assert [e.split("=")[0].strip().lower() for e in enum.split(",")] == list(S.QDENSE_FORMS)
     assert f"PAD_X = {S.PAD_X};" in src
+    assert f"QT = {S.POST_TILE};" in src
     assert GM.SPARSE_QDENSE == tuple(f"sparse_qdense_{f}" for f in S.QDENSE_FORMS)
     assert set(GM.SPARSE_QDENSE) <= set(GM.launches)
     assert "fast_math" not in " ".join(GM.NVCC_FLAGS) and "use_fast_math" not in src

@@ -76,14 +76,17 @@ def _nq(qenc: dict) -> int:
 
 def _slice_qenc(qenc: dict, nq: int, b0: int, b1: int) -> dict:
     """Queries [b0, b1) of an encoded batch of ``nq``; entries without the
-    batch axis (0-d constants such as l2sqr_sift's ``_dimconst``) go whole."""
-    return {k: (v[b0:b1] if v.ndim >= 1 and v.shape[0] == nq else v) for k, v in qenc.items()}
+    batch axis (0-d constants such as l2sqr_sift's ``_dimconst``) and those
+    that are no tensor (a sparse batch's ``q_post`` postings, which the
+    scoring site rebuilds for the slice) go whole."""
+    return {k: (v[b0:b1] if isinstance(v, torch.Tensor) and v.ndim >= 1 and v.shape[0] == nq else v)
+            for k, v in qenc.items()}
 
 
 def _densify(space, qenc: dict, data) -> dict:
-    """Attach a sparse space's densified query table f32[V, Q] once per
-    scan (tpu_knn's _densify_in_jit, hoisted by XLA there): every
-    scoring site of the scan takes it. A no-op for the other spaces and for
+    """Attach a sparse space's query postings once per scan (where
+    tpu_knn's _densify_in_jit builds its table, hoisted by XLA there): every
+    scoring site of the scan takes them. A no-op for the other spaces and for
     corpora without the vocabulary gate."""
     hook = getattr(space, "densify_queries", None)
     if hook is None or "vocab_mark" not in getattr(data, "extra", {}):

@@ -17,16 +17,18 @@ One formulation per primitive, the one that suits the card; tpu_knn
 ships others for reasons of its own (the TPU arm each matches is named):
 
   * dot products and intersection counts of a query batch against corpus
-    rows look each corpus element up in a densified query table f32[V, Q]
-    (:func:`densify`, transposed so that one element's Q values are one
-    contiguous row) and contract over nnz with one batched product
-    (:func:`dot_qdense`, :func:`intersect_count_qdense`). tpu_knn's scan
-    does the same with a [Q, V] table (dot_qdense, SPARSE_SCAN_QDENSE).
-    The scan's distances come from :func:`qdense_dists`: on the card one
-    launch of the hand-written kernel ``csrc/sparse_qdense.cu``, which
-    gathers, sums and applies the space's post (:func:`dot_post`) without
-    the [rows, nnz, Q] block; its plain version,
-    :func:`qdense_dists_reference`, is those two products and the post.
+    rows: the scan's distances come from :func:`qdense_dists`, whose query
+    side is the batch's term-major postings (:class:`Postings`, built by
+    :func:`postings` with one stable sort). On the card it is one launch
+    of the hand-written kernel ``csrc/sparse_qdense.cu``, which walks each
+    corpus element's run of query records, so that its work follows the
+    non-zero products, and applies the space's post (:func:`dot_post`).
+    Its plain version, :func:`qdense_dists_reference`, densifies the
+    postings into the query table f32[V, Q] (:func:`postings_table`, the
+    table of :func:`densify_t`), looks each corpus element up in it and
+    contracts over nnz with one batched product (:func:`dot_qdense`,
+    :func:`intersect_count_qdense`), then posts. tpu_knn's scan does the
+    same with a [Q, V] table (dot_qdense, SPARSE_SCAN_QDENSE).
   * gathered candidates [B, K, nnz] (the graph's beam) look their elements
     up in each query's own row of a [B, V] table (:func:`gathered_dot`,
     :func:`gathered_found`). tpu_knn ships GATHER_SCORING="support", an
@@ -54,7 +56,9 @@ Every product runs at IEEE f32 (ops/distance.require_ieee_f32).
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -84,6 +88,103 @@ def densify_t(col: torch.Tensor, val: torch.Tensor, v_pad: int) -> torch.Tensor:
     """:func:`densify` transposed to f32[v_pad, rows], contiguous: the table
     layout of :func:`dot_qdense`."""
     return densify(col, val, v_pad).t().contiguous()
+
+
+#: Queries a tile of :class:`Postings` (``QT`` of csrc/sparse_qdense.cu): a
+#: term's records are cut by tile, so the kernel's warp finds its tile's run
+#: between two pointers
+POST_TILE = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class Postings:
+    """A query batch's term-major postings over a padded vocabulary of ``v``
+    ids: the query side of :func:`qdense_dists`.
+
+    ``rec`` i32[R, 2] holds one (query index, value bits) record a slot of
+    the batch, sorted by (id, query tile of :data:`POST_TILE`, query); the
+    records of 0-based term t in tile j are ``rec[ptr[t * tiles + j]:ptr[t *
+    tiles + j + 1]]``, ascending in query. ``ptr`` is i32[v * tiles + 1];
+    records past ``ptr[-1]`` are the batch's padding and ids beyond the
+    vocabulary, which no corpus id matches, and are never read. ``span``
+    is the kernel's view of the runs: one 16-byte load gives a (term, tile)
+    run's bounds and its first record, which is most runs' only one. Not a
+    tensor, so an encoded batch's row slicing (seq_search._slice_qenc)
+    leaves it whole; it records its ``nq`` and ``v`` for a check."""
+
+    ptr: torch.Tensor
+    rec: torch.Tensor
+    nq: int
+    v: int
+
+    @property
+    def tiles(self) -> int:
+        return max(1, -(-self.nq // POST_TILE))
+
+    @property
+    def device(self) -> torch.device:
+        return self.ptr.device
+
+    @functools.cached_property
+    def _checked(self) -> torch.device:
+        """The postings' device, once their arrays are checked (at the first
+        :func:`qdense_dists` call on them)."""
+        dev = self.device
+        _want("", "post.ptr", self.ptr, torch.int32, (self.v * self.tiles + 1,), dev)
+        _want("", "post.rec", self.rec, torch.int32, (self.rec.shape[0], 2), dev)
+        return dev
+
+    @functools.cached_property
+    def span(self) -> torch.Tensor:
+        """The kernel's view of the runs, i32[v * tiles + 1, 4]: row k = t *
+        tiles + j holds the run of term t in tile j as (start, length | q0 <<
+        8 | q1 << 16, value 0, value 1), q0 and q1 the queries of its first
+        two records less j * POST_TILE and their value bits (0 past the run's
+        end); the last row an empty run (padding's). Most runs hold at most
+        two records, so one 16-byte load gives all their products. Derived
+        from ``ptr`` and ``rec`` at its first use, so that it always agrees
+        with them."""
+        ptr, rec = self.ptr.long(), self.rec
+        start, n = ptr[:-1], ptr[1:] - ptr[:-1]
+        base = (torch.arange(start.shape[0], device=ptr.device) % self.tiles) * POST_TILE
+        padded = torch.cat((rec, rec.new_zeros((1, 2))))  # the zero row past the records
+        r0 = padded[torch.where(n > 0, start, rec.shape[0])]
+        r1 = padded[torch.where(n > 1, start + 1, rec.shape[0])]
+        q0 = torch.where(n > 0, r0[:, 0] - base, 0)
+        q1 = torch.where(n > 1, r1[:, 0] - base, 0)
+        span = torch.stack((start, n | q0 << 8 | q1 << 16, r0[:, 1].long(), r1[:, 1].long()), dim=1)
+        end = torch.stack((ptr[-1:], ptr.new_zeros(1), ptr.new_zeros(1), ptr.new_zeros(1)), dim=1)
+        return torch.cat((span, end)).int()
+def postings(col: torch.Tensor, val: torch.Tensor, v_pad: int) -> Postings:
+    """The term-major postings of query rows ``col``/``val`` ([Q, T], ids
+    1-based, padding PAD_Q) over ``v_pad`` ids, on their device with one
+    stable sort of the (id, query) pairs and no host sync: the row-major
+    slots are in query order, so the sort keeps each run ascending. Ids
+    outside [1, v_pad] sort past the last pointer, as :func:`densify` drops
+    them. Memory: 8 B a query slot and 20 B a (term, tile), 19 MB at 512
+    queries over 60,032 ids."""
+    nq, t = col.shape
+    tiles = max(1, -(-nq // POST_TILE))
+    dev = col.device
+    q = torch.arange(nq, device=dev).repeat_interleave(t)
+    ids = col.reshape(-1).long()
+    key = torch.where((ids >= 1) & (ids <= v_pad), (ids - 1) * tiles + q // POST_TILE, v_pad * tiles)
+    key, order = torch.sort(key, stable=True)
+    rec = torch.stack((q[order].int(), val.reshape(-1).float()[order].view(torch.int32)), dim=1)
+    ptr = torch.searchsorted(key, torch.arange(v_pad * tiles + 1, device=dev), out_int32=True)
+    return Postings(ptr, rec.contiguous(), nq, v_pad)
+
+
+def postings_table(post: Postings) -> torch.Tensor:
+    """The densified query table f32[v, nq] that ``post`` holds: value for
+    value the table :func:`densify_t` makes of the same query rows. Each
+    record's term is found from ``ptr``; the dropped records land in a spare
+    row that is cut off."""
+    i = torch.arange(post.rec.shape[0], device=post.device)
+    term = (torch.searchsorted(post.ptr.long(), i, right=True) - 1) // post.tiles
+    table = torch.zeros((post.v + 1, post.nq), dtype=torch.float32, device=post.device)
+    table[term.clamp_(max=post.v), post.rec[:, 0].long()] = post.rec[:, 1].view(torch.float32)
+    return table[:post.v]
 
 
 def _row_blocks(n: int, per_row: int, dev: torch.device):
@@ -372,10 +473,12 @@ def dot_post(form: str, dot, qn, xn):
     raise ValueError(f"unknown dot form {form!r}; known: {QDENSE_FORMS[:4]}")
 
 
-def qdense_dists_reference(form, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
-    """Plain version of :func:`qdense_dists`: :func:`dot_qdense` (or
+def qdense_dists_reference(form, post, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """Plain version of :func:`qdense_dists`: the postings' table
+    (:func:`postings_table`), :func:`dot_qdense` (or
     :func:`intersect_count_qdense` for ``jaccard``), then the form's post,
     then ``pad``."""
+    table = postings_table(post)
     if form == "jaccard":
         d = jaccard_from_counts(intersect_count_qdense(table, xcol), qlen[:, None], xlen[None, :])
     else:
@@ -384,47 +487,55 @@ def qdense_dists_reference(form, table, xcol, w, qn, qlen, xlen, pad) -> torch.T
     return d + pad[None, :]
 
 
-def _check_qdense(form, table, xcol, w, qn, qlen, xlen, pad) -> None:
+def _want(form, name, t, dtype, shape, dev) -> None:
+    """Raises unless ``t`` is a ``dtype`` tensor on ``dev`` of ``shape``
+    (any shape for None)."""
+    if t is None or t.dtype != dtype or t.device != dev or (shape is not None and t.shape != shape):
+        got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        raise ValueError(f"qdense_dists {form}: {name} must be {dtype} {shape or ''} on {dev}; got {got}")
+
+
+def _check_qdense(form, post, xcol, w, qn, qlen, xlen, pad) -> None:
+    """The wrapper's contract, checked at every call: a scan makes one a
+    chunk, so a batch's postings are checked once (``Postings._checked``)."""
     if form not in QDENSE_FORMS:
         raise ValueError(f"qdense_dists: unknown form {form!r}; known: {list(QDENSE_FORMS)}")
-    if table.ndim != 2 or xcol.ndim != 2:
-        raise ValueError(f"qdense_dists needs table [V, Q] and xcol [C, nnz]; got {tuple(table.shape)}, "
+    if not isinstance(post, Postings) or xcol.ndim != 2:
+        raise ValueError(f"qdense_dists needs Postings and xcol [C, nnz]; got {type(post).__name__}, "
                          f"{tuple(xcol.shape)}")
-    (_, nq), (c, nnz) = table.shape, xcol.shape
-    want = {"table": (table, torch.float32, None), "xcol": (xcol, torch.int32, None),
-            "pad": (pad, torch.float32, (c,))}
+    dev = post._checked
+    nq, (c, nnz) = post.nq, xcol.shape
+    _want(form, "xcol", xcol, torch.int32, None, dev)
+    _want(form, "pad", pad, torch.float32, (c,), dev)
     if form == "jaccard":
-        want.update(qlen=(qlen, torch.int32, (nq,)), xlen=(xlen, torch.int32, (c,)))
+        _want(form, "qlen", qlen, torch.int32, (nq,), dev)
+        _want(form, "xlen", xlen, torch.int32, (c,), dev)
     else:
-        want["w"] = (w, torch.float32, (c, nnz))
+        _want(form, "w", w, torch.float32, (c, nnz), dev)
         if form != "negdot":
-            want["qn"] = (qn, torch.float32, (nq,))
-    for name, (t, dtype, shape) in want.items():
-        if t is None or t.dtype != dtype or t.device != table.device or (shape and tuple(t.shape) != shape):
-            got = "None" if t is None else f"{t.dtype} {tuple(t.shape)} on {t.device}"
-            raise ValueError(f"qdense_dists {form}: {name} must be {dtype} {shape or ''} on {table.device}; "
-                             f"got {got}")
+            _want(form, "qn", qn, torch.float32, (nq,), dev)
 
 
-def _qdense_launch(form, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
-    """One launch of csrc/sparse_qdense.cu on a CUDA tensor; raises if the
+def _qdense_launch(form, post, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """One launch of csrc/sparse_qdense.cu on CUDA tensors; raises if the
     tensors are not on the card or the launch is refused."""
-    if table.device.type != "cuda":
-        raise ValueError(f"qdense_dists: the kernel runs on a CUDA tensor; got one on {table.device}")
-    args = (table, xcol, w, qn, qlen, xlen, pad)
+    if post.device.type != "cuda":
+        raise ValueError(f"qdense_dists: the kernel runs on a CUDA tensor; got one on {post.device}")
+    args = (post.span, post.rec, xcol, w, qn, qlen, xlen, pad)
     if any(t is not None and not t.is_contiguous() for t in args):
         raise ValueError("qdense_dists: every tensor must be contiguous")
-    require_ieee_f32(table)
-    (v, nq), (c, nnz) = table.shape, xcol.shape
-    out = torch.empty((nq, c), dtype=torch.float32, device=table.device)
-    if nq == 0 or c == 0:
+    c, nnz = xcol.shape
+    out = torch.empty((post.nq, c), dtype=torch.float32, device=post.device)
+    if post.nq == 0 or c == 0:
         return out
     lib = _qdense_lib()
     ptr = [None if t is None else t.data_ptr() for t in args]
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        err = lib.tk_sparse_qdense(QDENSE_FORMS.index(form), ptr[0], v, nq, ptr[1], ptr[2], c, nnz, *ptr[3:],
-                                   out.data_ptr(), stream)
+    dev = post.device
+    # the launch goes to the current device: switch only when the postings lie elsewhere
+    with torch.cuda.device(dev) if torch.cuda.current_device() != dev.index else contextlib.nullcontext():
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.tk_sparse_qdense(QDENSE_FORMS.index(form), ptr[0], ptr[1], post.v, post.nq, ptr[2], ptr[3], c, nnz,
+                                   *ptr[4:], out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"sparse_qdense {form} kernel launch failed: {lib.tk_error_string(err).decode()} ({err})")
     GM.count_launch(f"sparse_qdense_{form}")
@@ -437,31 +548,32 @@ def _qdense_lib():
     entry typed, once."""
     lib = GM._load("sparse_qdense")
     vp, i64, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.tk_sparse_qdense.argtypes = [ci, vp, i64, i64, vp, vp, i64, ci, vp, vp, vp, vp, vp, vp]
+    lib.tk_sparse_qdense.argtypes = [ci, vp, vp, i64, i64, vp, vp, i64, ci, vp, vp, vp, vp, vp, vp]
     lib.tk_sparse_qdense.restype = ci
     return lib
 
 
-def qdense_dists(form: str, table, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
-    """Distances f32[Q, C] of a query batch against shared corpus rows
-    through the densified query table: ``post(sum_t table[col[r,t]-1, q]
-    w[r,t]) + pad[r]``.
+def qdense_dists(form: str, post, xcol, w, qn, qlen, xlen, pad) -> torch.Tensor:
+    """Distances f32[Q, C] of a query batch against shared corpus rows:
+    ``post(sum_t table[col[r,t]-1, q] w[r,t]) + pad[r]`` for the table
+    that the batch's postings hold.
 
-    ``table`` f32[V, Q] (:func:`densify_t`; a presence table for
-    ``jaccard``), ``xcol`` i32[C, nnz] (padding carries weight 0), ``w``
-    the corpus values f32[C, nnz] (the dot forms), ``qn`` the query norms
-    f32[Q] (``querynorm``, ``cosine``, ``angular``), ``qlen``/``xlen`` the
-    support sizes i32[Q]/[C] (``jaccard``), ``pad`` f32[C]; what a form
-    does not read may be None. ``form`` is one of :data:`QDENSE_FORMS`.
+    ``post`` the batch's :class:`Postings` (:func:`postings`; presence
+    values for ``jaccard``), ``xcol`` i32[C, nnz] (padding carries weight
+    0), ``w`` the corpus values f32[C, nnz] (the dot forms), ``qn`` the
+    query norms f32[Q] (``querynorm``, ``cosine``, ``angular``),
+    ``qlen``/``xlen`` the support sizes i32[Q]/[C] (``jaccard``), ``pad``
+    f32[C]; what a form does not read may be None. ``form`` is one of
+    :data:`QDENSE_FORMS`.
 
     A CPU tensor runs :func:`qdense_dists_reference`. A CUDA tensor
     launches ``csrc/sparse_qdense.cu`` (counted in ops/groupmin.py's
     ``launches`` as ``sparse_qdense_{form}``) or raises; it never falls
     back."""
-    _check_qdense(form, table, xcol, w, qn, qlen, xlen, pad)
-    if table.device.type == "cpu":
-        return qdense_dists_reference(form, table, xcol, w, qn, qlen, xlen, pad)
-    return _qdense_launch(form, table, xcol, w, qn, qlen, xlen, pad)
+    _check_qdense(form, post, xcol, w, qn, qlen, xlen, pad)
+    if post.device.type == "cpu":
+        return qdense_dists_reference(form, post, xcol, w, qn, qlen, xlen, pad)
+    return _qdense_launch(form, post, xcol, w, qn, qlen, xlen, pad)
 
 
 def sketch_matrix(v_pad: int, dsk: int, seed: int, device="cpu") -> torch.Tensor:

@@ -215,24 +215,31 @@ class SparseSpaceBase(Space):
         pass
 
     def _qdense_values(self, qval: torch.Tensor) -> torch.Tensor:
-        """Values scattered into the densified query tables (presence
-        indicators for jaccard)."""
+        """Values of the densified query tables and of the postings
+        (presence indicators for jaccard)."""
         return qval
 
     def densify_queries(self, qenc: dict, corpus: dict, scan: bool = False) -> dict:
-        """Attach the densified query table sized from the scored corpus's
-        vocab_mark: ``q_dense`` f32[Q, V_pad] for gathered candidates, or
-        with ``scan`` ``q_dense_t`` f32[V_pad, Q] for a scan of shared rows
-        (ops/sparse.py). Query ids beyond the vocabulary drop out, which is
-        exact: no corpus id matches them. No-op without the gate or when the
-        table is there."""
+        """Attach the query side sized from the scored corpus's vocab_mark:
+        ``q_dense`` f32[Q, V_pad], the densified table, for gathered
+        candidates, or with ``scan`` ``q_post``, the batch's term-major
+        postings (ops/sparse.Postings, one sort on the device; no [V, Q]
+        table), for a scan of shared rows. Query ids beyond the vocabulary
+        drop out, which is exact: no corpus id matches them. No-op without
+        the gate or when the batch's own is there (postings of another
+        batch, width or device are built anew)."""
         vm = corpus.get("vocab_mark")
-        key = "q_dense_t" if scan else "q_dense"
-        if vm is None or key in qenc or "qcol" not in qenc:
+        if vm is None or "qcol" not in qenc:
             return qenc
-        vals = self._qdense_values(qenc["qval"])
-        table = (S.densify_t if scan else S.densify)(qenc["qcol"], vals, vm.shape[0])
-        return {**qenc, key: table}
+        col = qenc["qcol"]
+        if scan:
+            post = qenc.get("q_post")
+            if post is not None and (post.v, post.nq, post.device) == (vm.shape[0], col.shape[0], col.device):
+                return qenc
+            return {**qenc, "q_post": S.postings(col, self._qdense_values(qenc["qval"]), vm.shape[0])}
+        if "q_dense" in qenc:
+            return qenc
+        return {**qenc, "q_dense": S.densify(col, self._qdense_values(qenc["qval"]), vm.shape[0])}
 
     def slice_data(self, data: SparseDeviceData, start: int, size: int) -> dict:
         sl = slice(start, start + size)
@@ -282,22 +289,22 @@ class SparseDotBase(SparseSpaceBase):
     qdense_form = ""
 
     def densify_queries(self, qenc: dict, corpus: dict, scan: bool = False) -> dict:
-        """As the base class; a scan's table also brings the query norms
+        """As the base class; a scan's postings also bring the query norms
         ``qnorm`` f32[Q], once a scan, not once a block."""
         qenc = super().densify_queries(qenc, corpus, scan)
-        if scan and "q_dense_t" in qenc and "qnorm" not in qenc:
+        if scan and "q_post" in qenc and "qnorm" not in qenc:
             qenc = {**qenc, "qnorm": S.norms_from_vals(qenc["qval"])}
         return qenc
 
     def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
         """Distances f32[Q, C] against shared rows: one ops/sparse
-        qdense_dists call through the densified query table (built on the
-        spot when the caller did not attach it), the hand-written kernel on
+        qdense_dists call through the batch's postings (built on the spot
+        when the caller did not attach them), the hand-written kernel on
         the card; the binary-search lookup when the corpus has no
         vocabulary gate."""
         qenc = self.densify_queries(qenc, xc, scan=True)
-        if "q_dense_t" in qenc:
-            return S.qdense_dists(self.qdense_form, qenc["q_dense_t"], xc["cols"], xc["x"], qenc["qnorm"], None,
+        if "q_post" in qenc:
+            return S.qdense_dists(self.qdense_form, qenc["q_post"], xc["cols"], xc["x"], qenc["qnorm"], None,
                                   None, xc["pad"])
         return super().block(qenc, xc, precision)
 
@@ -486,12 +493,12 @@ class SparseJaccardSpace(SparseSpaceBase):
 
     def block(self, qenc, xc, precision: str = "float32") -> torch.Tensor:
         """Distances f32[Q, C] against shared rows: one ops/sparse
-        qdense_dists call through the densified presence table (the
+        qdense_dists call through the batch's presence postings (the
         hand-written kernel on the card); the binary-search lookup when
         the corpus has no vocabulary gate."""
         qenc = self.densify_queries(qenc, xc, scan=True)
-        if "q_dense_t" in qenc:
-            return S.qdense_dists("jaccard", qenc["q_dense_t"], xc["cols"], None, None, qenc["qlen"], xc["len"],
+        if "q_post" in qenc:
+            return S.qdense_dists("jaccard", qenc["q_post"], xc["cols"], None, None, qenc["qlen"], xc["len"],
                                   xc["pad"])
         return super().block(qenc, xc, precision)
 
