@@ -3525,13 +3525,14 @@ def _phase_sparse(smi):
     dd, bb = oracles["cosine"]
     gold = np.argsort(dd, axis=1, kind="stable")[:, :k]
     side = {}
-    from tpu_knn_torch.methods.hnsw import Hnsw
+    from tpu_knn_torch.utils import tracing
 
     # recall@10 floors at efSearch=100: sketch traversal is limited by the
     # sketch's noise; l2 over unnormalized bag-of-words rows is harder for
     # the graph (its exact-wave graph holds tpu_knn's neighbour sets on the
     # CPU, tests/test_torch_sparse.py, so its recall is tpu_knn's). The
-    # exact-wave build also times its wave phases, a sync at each edge.
+    # exact-wave build also reads its wave phases' device seconds from the
+    # tracer's hnsw.wave.* spans.
     for label, name, params, floor in (
             ("sketchDim=0", "cosinesimil_sparse", dict(sketchDim=0), 0.9),
             ("sketchQuery=1", "cosinesimil_sparse", dict(sketchQuery=1), 0.5),
@@ -3540,18 +3541,22 @@ def _phase_sparse(smi):
             ("sparse_jaccard", "sparse_jaccard", {}, 0.9)):
         ix = Index(name, data_type=DataKind.SPARSE, device="cuda")
         ix.add_sparse_batch(c2, ids=range(n2))
-        Hnsw.wave_profile = {} if label == "sketchDim=0" else None
+        if label == "sketchDim=0":
+            tracing.reset()
+            tracing.enable()
         try:
             tb = time.perf_counter()
             ix.build_index(Params(dict(M=16, efConstruction=100, waveSize=512, **params)))
             torch.cuda.synchronize()
             bs = time.perf_counter() - tb
             if label == "sketchDim=0":
-                out["wave_profile"] = {"build_s": bs, **Hnsw.wave_profile}
-                print(f"[sparse] (d) hnsw {label} {n2} rows, wave phases timed: " + ", ".join(
+                out["wave_profile"] = {"build_s": bs, **{
+                    name[len("hnsw.wave."):]: (t["device_ms"] or 0.0) / 1e3
+                    for name, t in tracing.totals().items() if name.startswith("hnsw.wave.")}}
+                print(f"[sparse] (d) hnsw {label} {n2} rows, wave phases' device seconds: " + ", ".join(
                     f"{key} {v:.3f} s" for key, v in out["wave_profile"].items()) + f"; {smi}", flush=True)
         finally:
-            Hnsw.wave_profile = None
+            tracing.disable()
         chk = ix.method.check_graph()
         ix.set_query_time_params(Params(efSearch=100))
         dh, ih = ix.knn_query_batch(q2, k)

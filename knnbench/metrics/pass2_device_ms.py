@@ -1,0 +1,16 @@
+"""pass2_device_ms (ms): device time a batch of the two-pass scan's pass 2
+(the selected groups' rows gathered and re-scored, their top-k), from the
+CUDA events of the port's ``seq_search.pass2`` span
+(tpu_knn_torch/utils/tracing.py). None where the program has no such span
+or it has no device time."""
+
+
+def read(run):
+    try:
+        from tpu_knn_torch.utils import tracing
+    except ImportError:
+        return None
+    t = tracing.totals().get("seq_search.pass2")
+    if t is None or t["device_ms"] is None or not run.latencies:
+        return None
+    return t["device_ms"] / len(run.latencies)

@@ -47,6 +47,7 @@ from .core.dataset import DataKind, DataStore, DistKind, SparsePoint
 from .core.errors import InvalidArgumentError
 from .core.params import Params
 from .core.registry import canonical_space_name, create_method, create_space
+from .utils import tracing
 from .utils.logging import log
 
 
@@ -70,17 +71,21 @@ class KnnFuture:
     """Handle for a dispatched-but-unread kNN batch
     (:meth:`Index.knn_query_batch_async`). ``result()`` waits for the
     batch and returns the same (dists, ids) pair ``knn_query_batch``
-    would; it is idempotent, and re-raises the error the batch raised."""
+    would; it is idempotent, and re-raises the error the batch raised.
+    It keeps the trace batch id of its dispatch, so that the spans of its
+    ``result()`` join the batch's (utils/tracing.py)."""
 
-    __slots__ = ("_materialize", "_value")
+    __slots__ = ("_materialize", "_value", "_batch")
 
-    def __init__(self, materialize):
+    def __init__(self, materialize, batch=None):
         self._materialize = materialize
         self._value = None
+        self._batch = batch
 
     def result(self) -> tuple[np.ndarray, np.ndarray]:
         if self._materialize is not None:
-            self._value = self._materialize()
+            with tracing.batch("api.result", self._batch):
+                self._value = self._materialize()
             self._materialize = None
         return self._value
 
@@ -184,25 +189,28 @@ class Index:
         ids: Sequence[int] | None = None,
         labels: Sequence[int] | None = None,
     ) -> None:
-        self._check_dim(np.asarray(vectors))
-        self._drain()
-        old = len(self.store)
-        self.store.add_dense_batch(vectors, ids, labels)
-        self._mark_dirty(old)
+        with tracing.span("index.add"):
+            self._check_dim(np.asarray(vectors))
+            self._drain()
+            old = len(self.store)
+            self.store.add_dense_batch(vectors, ids, labels)
+            self._mark_dirty(old)
 
     def add_uint8_batch(self, vectors: Any, ids: Sequence[int] | None = None) -> None:
-        self._drain()
-        old = len(self.store)
-        self.store.add_uint8_batch(vectors, ids)
-        self._mark_dirty(old)
+        with tracing.span("index.add"):
+            self._drain()
+            old = len(self.store)
+            self.store.add_uint8_batch(vectors, ids)
+            self._mark_dirty(old)
 
     def add_sparse_batch(self, points, ids: Sequence[int] | None = None) -> None:
         """Sparse points as (ids, values) pairs or SparsePoint: ids 1-based
         and strictly increasing; object ids default to 1-based positions."""
-        self._drain()
-        old = len(self.store)
-        self.store.add_sparse_batch(points, ids)
-        self._mark_dirty(old)
+        with tracing.span("index.add"):
+            self._drain()
+            old = len(self.store)
+            self.store.add_sparse_batch(points, ids)
+            self._mark_dirty(old)
 
     def add_bit_batch_packed(
         self,
@@ -219,10 +227,11 @@ class Index:
         self.add_uint8_batch(unpack_bit_vectors(words, n_bits), ids)
 
     def add_string_batch(self, strings: Sequence[str | bytes], ids: Sequence[int] | None = None) -> None:
-        self._drain()
-        old = len(self.store)
-        self.store.add_string_batch(strings, ids)
-        self._mark_dirty(old)
+        with tracing.span("index.add"):
+            self._drain()
+            old = len(self.store)
+            self.store.add_string_batch(strings, ids)
+            self._mark_dirty(old)
 
     def delete_batch(self, positions: Sequence[int], strategy: str = "none") -> None:
         """Incremental deletion by store position; supported only by
@@ -284,17 +293,18 @@ class Index:
         return create_method(self.method_name, self.space, params)
 
     def build_index(self, index_params: Params | dict | None = None, print_progress: bool = False) -> None:
-        self._drain()
-        params = Params.of(index_params) if index_params is not None else (self._index_params or Params())
-        self._index_params = params
-        if print_progress:
-            log("INFO", f"building {self.method_name} over {len(self.store)} objects on {self.device}")
-        self.method = self._make_method(params)
-        self.method.progress = print_progress  # per-wave logging (hnsw)
-        self.method.create_index(self.store, params)
-        if self._query_params is not None:
-            self.method.set_query_time_params(self._query_params)
-        self.built = True
+        with tracing.span("index.build"):
+            self._drain()
+            params = Params.of(index_params) if index_params is not None else (self._index_params or Params())
+            self._index_params = params
+            if print_progress:
+                log("INFO", f"building {self.method_name} over {len(self.store)} objects on {self.device}")
+            self.method = self._make_method(params)
+            self.method.progress = print_progress  # per-wave logging (hnsw)
+            self.method.create_index(self.store, params)
+            if self._query_params is not None:
+                self.method.set_query_time_params(self._query_params)
+            self.built = True
 
     def _ensure_built(self) -> None:
         """Auto-build on first use (reference: lib.zig:800 et al.)."""
@@ -333,10 +343,13 @@ class Index:
         """
         if k <= 0:
             raise InvalidArgumentError("k must be positive")
-        self._ensure_built()
-        self._drain()
-        pts, b = self._bucket_query_points(points)
-        return self._finish_knn(*self.method.knn(pts, k), b)
+        with tracing.batch("api.knn") as sp:
+            self._ensure_built()
+            self._drain()
+            pts, b = self._bucket_query_points(points)
+            out = self._finish_knn(*self.method.knn(pts, k), b)
+            tracing.resolve(sp.batch)  # the answers are on the host
+            return out
 
     def _finish_knn(self, d, i, b: int):
         """Slice a bucketed batch back to ``b`` queries; rint INT distances."""
@@ -383,10 +396,11 @@ class Index:
         simple_invindx, dummy, mesh=) run the batch inside this call."""
         if k <= 0:
             raise InvalidArgumentError("k must be positive")
-        self._ensure_built()
-        pts, b = self._bucket_query_points(points)
-        done = self.method.knn_async(pts, k)
-        return KnnFuture(lambda: self._finish_knn(*done(), b))
+        with tracing.batch("api.knn_async") as sp:
+            self._ensure_built()
+            pts, b = self._bucket_query_points(points)
+            done = self.method.knn_async(pts, k)
+        return KnnFuture(lambda: self._finish_knn(*done(), b), sp.batch)
 
     def range_query(self, point: Any, radius: float) -> QueryResult:
         batch = [point] if self.data_type is not DataKind.DENSE else np.asarray(point)[None, :]
@@ -396,12 +410,14 @@ class Index:
         """Batched range search: one QueryResult per query, the ids and
         distances of every corpus point within ``radius``, ascending.
         Results stream through the device in chunks, never as [Q, N]."""
-        self._ensure_built()
-        self._drain()
-        res = self.method.range(self._prep_query_points(points), radius)
-        if self.dist_type is DistKind.INT:
-            return [QueryResult(ids, np.rint(dists)) for ids, dists in res]
-        return [QueryResult(ids, dists) for ids, dists in res]
+        with tracing.batch("api.range") as sp:
+            self._ensure_built()
+            self._drain()
+            res = self.method.range(self._prep_query_points(points), radius)
+            tracing.resolve(sp.batch)  # the answers are on the host
+            if self.dist_type is DistKind.INT:
+                return [QueryResult(ids, np.rint(dists)) for ids, dists in res]
+            return [QueryResult(ids, dists) for ids, dists in res]
 
     def _prep_query_points(self, points: Any):
         if self.data_type is DataKind.SPARSE:

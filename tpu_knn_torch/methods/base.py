@@ -33,6 +33,7 @@ from ..core.dataset import DataStore, round_up
 from ..core.errors import RuntimeNmsError, SpaceIncompatibleError
 from ..core.params import Params
 from ..spaces.base import Space
+from ..utils import tracing
 
 #: Distances at or above this are padding/masked sentinels, never results.
 RESULT_DIST_CUTOFF = 1e29
@@ -55,8 +56,8 @@ def stream_range_results(counts: np.ndarray, data, collect):
     if counts.max(initial=0) == 0:
         return [(np.zeros(0, np.int32), f32) for _ in range(counts.shape[0])]
     dk, pos = collect(range_cap(counts.max(), data.ids.shape[0]))
-    dk, pos = dk.cpu().numpy(), pos.cpu().numpy()
-    ids = data.ids.cpu().numpy()
+    with tracing.sync("range_results"):
+        dk, pos, ids = dk.cpu().numpy(), pos.cpu().numpy(), data.ids.cpu().numpy()
     return [(ids[pos[i, :c]].copy(), dk[i, :c].copy()) for i, c in enumerate(counts)]
 
 
@@ -88,13 +89,15 @@ def _to_host(v):
 class _Job:
     """One dispatched batch. ``fn`` runs on the worker and returns a tuple
     whose tensors come back to the host (pinned, behind ``event`` on the
-    card); ``ready`` is the caller's stream at dispatch."""
+    card); ``ready`` is the caller's stream at dispatch; ``batch`` the
+    caller's trace batch id (utils/tracing.py)."""
 
-    __slots__ = ("fn", "ready", "done", "host", "error", "event")
+    __slots__ = ("fn", "ready", "batch", "done", "host", "error", "event")
 
     def __init__(self, fn, ready):
         self.fn = fn
         self.ready = ready
+        self.batch = tracing.current_batch()
         self.done = threading.Event()
         self.host = None
         self.error: Exception | None = None
@@ -102,12 +105,16 @@ class _Job:
 
     def wait(self) -> tuple:
         """Block until the batch has run and its copies have landed;
-        re-raise the error it raised."""
-        self.done.wait()
-        if self.error is not None:
-            raise self.error
-        if self.event is not None:
-            self.event.synchronize()
+        re-raise the error it raised. The batch's spans read their device
+        time here, once its results are on the host."""
+        tracing.SYNCS.bump("job")
+        with tracing.span("api.wait"):
+            self.done.wait()
+            if self.error is not None:
+                raise self.error
+            if self.event is not None:
+                self.event.synchronize()
+            tracing.resolve(self.batch)
         return self.host
 
 
@@ -146,11 +153,13 @@ class _Worker:
             job = self.jobs.get()
             try:
                 if self.stream is None:
-                    job.host = tuple(job.fn())
+                    with tracing.batch("dispatcher.run", job.batch):
+                        job.host = tuple(job.fn())
                 else:
                     with torch.cuda.stream(self.stream):
-                        self.stream.wait_event(job.ready)
-                        job.host = tuple(_to_host(v) for v in job.fn())
+                        with tracing.batch("dispatcher.run", job.batch):
+                            self.stream.wait_event(job.ready)
+                            job.host = tuple(_to_host(v) for v in job.fn())
                         job.event = self.stream.record_event()
             except Exception as e:  # noqa: BLE001 - re-raised by the future and the drain
                 job.error = e

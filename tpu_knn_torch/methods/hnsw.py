@@ -61,6 +61,7 @@ from ..ops import graph as G
 from ..ops import topk as T
 from ..ops.distance import pair_dot
 from ..ops.topk import INF
+from ..utils import tracing
 from ..utils.logging import log
 from ..utils.rng import np_rng
 from .base import Method
@@ -124,27 +125,6 @@ def _score_pairs(space, qenc_all, n_total, corpus, ids_a, ids_b):
     return torch.where(ids_a[:, :, None] < 0, INF, d)
 
 
-class _Span:
-    """Adds the wall seconds of a block to ``profile[key]``, with the
-    device drained on both edges; does nothing when ``profile`` is None."""
-
-    def __init__(self, profile, key: str, dev: torch.device):
-        self.profile, self.key, self.dev = profile, key, dev
-
-    def _now(self) -> float:
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        return time.perf_counter()
-
-    def __enter__(self):
-        if self.profile is not None:
-            self.t0 = self._now()
-
-    def __exit__(self, *exc):
-        if self.profile is not None:
-            self.profile[self.key] = self.profile.get(self.key, 0.0) + self._now() - self.t0
-
-
 def make_wave_step(
     space,
     n_total: int,
@@ -164,7 +144,6 @@ def make_wave_step(
     exact_shrink: bool = False,
     use_cstore: bool = False,
     merge_forward: bool = False,
-    profile: dict | None = None,
 ):
     """Build the batched insertion wave step.
 
@@ -190,8 +169,10 @@ def make_wave_step(
     selection heuristic's pairs exactly, ``exact_shrink`` the merge and
     reverse shrinks. The beams stay on the proxy.
 
-    ``profile``: a dict that collects wall seconds per phase of the step
-    (each phase then drains the device on both edges).
+    The step's phases are traced as ``hnsw.wave.<phase>`` spans
+    (utils/tracing.py): ``beam``, ``mates``, ``pairs``, ``select``,
+    ``forward``, ``reverse`` (``pairs`` and ``select`` also run inside
+    ``reverse``) and ``cstore``.
     """
     big = 2**30  # sort key of an invalid (neighbour, wave point) pair
 
@@ -208,7 +189,7 @@ def make_wave_step(
             return G.densify_queries(exact_space, _gather_qenc(eqenc_all, ids, n_total), ecorpus)
 
         def span(key):
-            return _Span(profile, key, dev)
+            return tracing.span("hnsw.wave." + key, timed=True)
 
         def level_candidates(adj, l, cur):
             """Beam over the frozen graph + nearest wave-mates, heuristic-
@@ -611,10 +592,6 @@ class Hnsw(Method):
     #: construction-only state is dropped.
     KEEP_WAVE_STATE = False
 
-    #: a dict here collects the wave step's wall seconds per phase
-    #: (make_wave_step's ``profile``), with a sync at every phase edge
-    wave_profile: dict | None = None
-
     #: a host f32[V_pad, dskp] matrix that replaces the drawn sketch R
     #: (spaces/sparse.py sketch_proxy's r_mat): a test hook
     sketch_r = None
@@ -975,7 +952,7 @@ class Hnsw(Method):
                 self.space, self._n_total, w, self._max_level, efc=self.ef_construction, m=self.M,
                 m0cap=self.maxM0, mcap=self.maxM, mates=min(self.wave_mates, w),
                 expand=self.construction_expand, selection="none" if self.delaunay_type == 0 else "heur",
-                merge_forward=True, profile=self.wave_profile,
+                merge_forward=True,
             )
             for _ in range(self.exact_post):
                 for wi in range(num_post - 1, -1, -1):
@@ -1022,7 +999,6 @@ class Hnsw(Method):
             exact_shrink=bool(self.exact_shrink),
             use_cstore=use_cstore,
             merge_forward=merge_forward,
-            profile=self.wave_profile,
         )
 
     def _cstore_ok(self) -> bool:

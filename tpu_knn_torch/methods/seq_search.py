@@ -40,6 +40,7 @@ from ..ops import groupmin as GM
 from ..ops import topk as T
 from ..ops.graph import gather_row_groups, score_gathered
 from ..spaces.dense import ensure_cert_metadata
+from ..utils import tracing
 from .base import Method, stream_range_results
 
 #: Worst-case certificate coefficients (|err| <= coeff * |q| * |x|), used
@@ -91,7 +92,8 @@ def _densify(space, qenc: dict, data) -> dict:
     hook = getattr(space, "densify_queries", None)
     if hook is None or "vocab_mark" not in getattr(data, "extra", {}):
         return qenc
-    return hook(qenc, {"vocab_mark": data.extra["vocab_mark"]}, scan=True)
+    with tracing.span("spaces.densify"):
+        return hook(qenc, {"vocab_mark": data.extra["vocab_mark"]}, scan=True)
 
 
 def _chunk_dists(space, qenc, data, ci: int, chunk: int, precision: str):
@@ -274,7 +276,9 @@ def _pass1_certified(space, qenc, data, k: int, tier: str):
     nb = -(-nq // _CERT_QBLK)
     ok_b = torch.cat([ok_q, ok_q.new_ones(nb * _CERT_QBLK - nq)]).view(nb, _CERT_QBLK).all(dim=1)
     # the certificate's one host sync per batch: ceil(Q/256) block flags
-    redo = [b for b, ok in enumerate(ok_b.cpu().tolist()) if not ok]
+    with tracing.sync("certificate"):
+        flags = ok_b.cpu().tolist()
+    redo = [b for b, ok in enumerate(flags) if not ok]
     for b in redo:
         s, e = b * _CERT_QBLK, min((b + 1) * _CERT_QBLK, nq)
         mins_b = GM.fused_groupmin(q[s:e], data.vecs, qt[s:e], xt, scale, precision="float32")
@@ -336,11 +340,15 @@ def _knn_device_twopass(space, qenc, data, k: int, chunk: int, precision: str,
     )
     ok, redone = 1.0, 0
     if use_cert:
-        gsel, ok, redone = _pass1_certified(space, qenc, data, k, pass1_precision)
+        with tracing.span("seq_search.pass1"):  # its selection and redo included
+            gsel, ok, redone = _pass1_certified(space, qenc, data, k, pass1_precision)
     else:
-        mins = _pass1(space, qenc, data) if kernel_ok else _pass1_block(space, qenc, data, chunk, precision)
-        gsel = _select_groups(mins, k)  # [Q, kg] group indices
-    dk, pos = _pass2(space, qenc, data, gsel, k)
+        with tracing.span("seq_search.pass1"):
+            mins = _pass1(space, qenc, data) if kernel_ok else _pass1_block(space, qenc, data, chunk, precision)
+        with tracing.span("seq_search.select"):
+            gsel = _select_groups(mins, k)  # [Q, kg] group indices
+    with tracing.span("seq_search.pass2", timed=True):
+        dk, pos = _pass2(space, qenc, data, gsel, k)
     pos = torch.where(torch.isinf(dk), -1, pos)
     return dk, _ids_of(data, pos), pos, ok, redone
 
@@ -412,7 +420,8 @@ class SeqSearch(Method):
         default = getattr(self.space, "preferred_chunk", self.DEFAULT_CHUNK)
         chunk = self.chunk or min(default, round_up(n, 8))
         chunk = round_up(chunk, 8)
-        self.data = self.space.encode_dataset(store, row_multiple=chunk)
+        with tracing.span("spaces.encode_dataset"):
+            self.data = self.space.encode_dataset(store, row_multiple=chunk)
         self._chunk = chunk
 
     def set_query_time_params(self, params: Params | None) -> None:
@@ -449,7 +458,8 @@ class SeqSearch(Method):
         if self.data is None:
             raise IndexNotBuiltError("seq_search: index not built")
         kk, use_twopass = self._plan_knn(k)
-        qenc = self.space.encode_queries(points)
+        with tracing.span("spaces.encode"):
+            qenc = self.space.encode_queries(points)
         space, data, chunk, precision, tier = self.space, self.data, self._chunk, self.precision, self.pass1_precision
         self._add_dist_comps(len(points) * data.count)
 
@@ -468,7 +478,9 @@ class SeqSearch(Method):
     def knn(self, points, k: int):
         kk, _, run = self._knn_run(points, k)
         d, ids = run()
-        return self._knn_finish(d.cpu().numpy(), ids.cpu().numpy(), k, kk)
+        with tracing.sync("knn_result"):
+            d, ids = d.cpu().numpy(), ids.cpu().numpy()
+        return self._knn_finish(d, ids, k, kk)
 
     def knn_async(self, points, k: int):
         kk, qenc, run = self._knn_run(points, k)
@@ -488,19 +500,21 @@ class SeqSearch(Method):
         SeqSearch.range; reference seqsearch.cc:109-141)."""
         if self.data is None:
             raise IndexNotBuiltError("seq_search: index not built")
-        qenc = _densify(self.space, self.space.encode_queries(points), self.data)
+        with tracing.span("spaces.encode"):
+            qenc = self.space.encode_queries(points)
+        qenc = _densify(self.space, qenc, self.data)
         radius = float(radius)
-        counts = _range_counts_device(
-            self.space, qenc, self.data, radius, self._chunk, self.precision
-        ).cpu().numpy()
+        with tracing.span("seq_search.range_count"):
+            counts = _range_counts_device(self.space, qenc, self.data, radius, self._chunk, self.precision)
+            with tracing.sync("range_counts"):
+                counts = counts.cpu().numpy()
         self._add_dist_comps(counts.shape[0] * self.data.count)
-        return stream_range_results(
-            counts,
-            self.data,
-            lambda cap: _range_collect_device(
-                self.space, qenc, self.data, radius, cap, self._chunk, self.precision
-            ),
-        )
+
+        def collect(cap):
+            with tracing.span("seq_search.range_collect"):
+                return _range_collect_device(self.space, qenc, self.data, radius, cap, self._chunk, self.precision)
+
+        return stream_range_results(counts, self.data, collect)
 
     # -- the gold-standard hook (gold_standard.h analog) --
     def exact_knn(self, points, k: int):

@@ -53,73 +53,21 @@ leaves the hoisting to XLA.
 
 from __future__ import annotations
 
-import threading
-
 import torch
 
+from ..utils import tracing
 from . import topk as T
 from .distance import batched_dot, block_elems
 from .topk import INF
 
-class _Counters(dict):
-    """A dict whose reads first wait for the kNN batches in flight on the
-    dispatcher's workers (methods/base.drain_all), so they count every
-    batch dispatched before the read; the loops bump it without waiting,
-    under a lock (a worker and a caller may search at once)."""
-
-    _lock = threading.Lock()
-
-    def bump(self, key: str) -> None:
-        with self._lock:
-            dict.__setitem__(self, key, dict.__getitem__(self, key) + 1)
-
-    @staticmethod
-    def _drain() -> None:
-        from ..methods.base import drain_all  # methods import this module
-
-        drain_all()
-
-    def __getitem__(self, key):
-        self._drain()
-        return dict.__getitem__(self, key)
-
-    def __iter__(self):
-        self._drain()
-        return dict.__iter__(self)
-
-    def __repr__(self):
-        self._drain()
-        return dict.__repr__(self)
-
-    def get(self, key, default=None):
-        self._drain()
-        return dict.get(self, key, default)
-
-    def keys(self):
-        self._drain()
-        return dict.keys(self)
-
-    def values(self):
-        self._drain()
-        return dict.values(self)
-
-    def items(self):
-        self._drain()
-        return dict.items(self)
-
-    def copy(self):
-        self._drain()
-        return dict(dict.items(self))
-
-
 #: Host-side counts of the loops: iterations run and device-to-host syncs
-#: made, for the beam and for the greedy descent.
-counters = _Counters(beam_iters=0, beam_syncs=0, descent_steps=0, descent_syncs=0)
+#: made, for the beam and for the greedy descent (the package's counter
+#: store, utils/tracing.py: reads wait for the batches in flight).
+counters = tracing.counters("graph", "beam_iters", "beam_syncs", "descent_steps", "descent_syncs")
 
 
 def reset_counters() -> None:
-    for key in counters:
-        counters[key] = 0
+    counters.reset()
 
 
 def qenc_axes(qenc: dict, batch: int, ndim: int = 1) -> dict:

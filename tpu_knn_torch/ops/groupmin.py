@@ -41,10 +41,11 @@ import os
 import re
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 
 import torch
+
+from ..utils import tracing
 
 GROUP = 128
 TIERS = ("float32", "int8", "high", "bfloat16")
@@ -91,9 +92,11 @@ ELEMENTWISE = tuple(f"elementwise_{e}_{f}" for e in ("groupmin", "dists", "batch
 #: launches are counted
 SPARSE_QDENSE = tuple(f"sparse_qdense_{f}" for f in ("negdot", "querynorm", "cosine", "angular", "jaccard"))
 #: kernel launches (CUDA tensors only): :func:`fused_groupmin`'s per tier,
-#: ops/elementwise.py's per instance, ops/sparse.py's per form
-launches = dict.fromkeys(TIERS + ELEMENTWISE + SPARSE_QDENSE, 0)
-_launches_lock = threading.Lock()
+#: ops/elementwise.py's per instance, ops/sparse.py's per form (a group of
+#: the package's counters, utils/tracing.py)
+launches = tracing.counters("launches", *(TIERS + ELEMENTWISE + SPARSE_QDENSE))
+#: nvcc builds (``builds``) and libraries loaded (``loads``)
+KERNELS = tracing.counters("kernels", "builds", "loads")
 
 _libs: dict = {}
 #: nvcc's output of the build that produced each loaded library ("" if cached)
@@ -101,15 +104,14 @@ build_log: dict = {}
 
 
 def reset_launches() -> None:
-    for key in launches:
-        launches[key] = 0
+    launches.reset()
 
 
 def count_launch(key: str) -> None:
     """Adds one to ``launches[key]``: the dispatcher's worker and a caller
-    may launch at once."""
-    with _launches_lock:
-        launches[key] += 1
+    may launch at once (under the counters' lock, with no drain: the worker
+    counts too; ``launches`` may be any dict put in its place)."""
+    tracing.Counters.bump(launches, key)
 
 
 def _nvcc() -> str:
@@ -159,21 +161,23 @@ def build_all(names=tuple(SOURCES)) -> dict:
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in todo:
-        tmp = BUILD_DIR / f".{libs[name].name}.{os.getpid()}"
-        procs[name] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        ))
     failed = []
-    for name, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed (exit {proc.returncode}) on {SOURCES[name]}:\n{log}")
-        else:
-            os.replace(tmp, libs[name])  # atomic: a concurrent build never loads a partial file
-            build_log[name] = log
+    with tracing.span("kernels.build"):
+        for name in todo:
+            tmp = BUILD_DIR / f".{libs[name].name}.{os.getpid()}"
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(INCLUDE_DIR), "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            ))
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            KERNELS.bump("builds")
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed (exit {proc.returncode}) on {SOURCES[name]}:\n{log}")
+            else:
+                os.replace(tmp, libs[name])  # atomic: a concurrent build never loads a partial file
+                build_log[name] = log
     if failed:
         raise RuntimeError("\n".join(failed))
     return libs
@@ -188,6 +192,7 @@ def _load(name: str):
     lib = _libs.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build(name)))
+        KERNELS.bump("loads")
         p, i64 = ctypes.c_void_p, ctypes.c_longlong
         args = [p, p, p, p, p, i64, i64, ctypes.c_int, ctypes.c_float]
         if name in _SCRATCH_BYTES:

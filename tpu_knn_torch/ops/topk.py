@@ -18,6 +18,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import tracing
+
 #: Sentinel used for masked/padded candidates.
 INF = float(np.inf)
 
@@ -76,13 +78,20 @@ def streaming_smallest_k(
     O(k) state. Running entries come before the chunk's in the merge, so
     ties keep the lowest column whatever the chunk size.
     ``nan_free``: no block holds a NaN (see :func:`smallest_k`).
+    Traced as ``seq_search.chunk`` (a block's distances) and
+    ``seq_search.merge`` (its merge), in every scan that shares the loop
+    (the exact scan's single pass and range collect, vptree's and napp's),
+    one iteration in ``tracing.EVERY``.
     """
     fd = torch.full((num_queries, k), INF, dtype=torch.float32, device=device)
     fi = torch.full((num_queries, k), -1, dtype=torch.int64, device=device)
     cols = torch.arange(chunk_size, device=device).expand(num_queries, chunk_size)
     for ci in range(num_chunks):
-        d = chunk_dists(ci)  # [Q, C]
-        fd, fi = merge_topk(fd, fi, d, cols[:, :d.shape[1]] + ci * chunk_size, k, nan_free)
+        w = tracing.sampled(ci, num_chunks)
+        with tracing.span("seq_search.chunk", w):
+            d = chunk_dists(ci)  # [Q, C]
+        with tracing.span("seq_search.merge", w, timed=True):
+            fd, fi = merge_topk(fd, fi, d, cols[:, :d.shape[1]] + ci * chunk_size, k, nan_free)
     return fd, fi
 
 

@@ -35,6 +35,7 @@ from ..core.params import ParamManager, Params
 from ..core.registry import register_space
 from ..ops import distance as D
 from ..ops import elementwise as E
+from ..utils import tracing
 from .base import Space
 
 #: Large-but-finite mask value for padded corpus rows (kept finite so that
@@ -118,7 +119,8 @@ class DenseSpace(Space):
 
     # --- Space interface ---
     def encode_dataset(self, store: DataStore, row_multiple: int = 8) -> DenseDeviceData:
-        mat = store.dense_matrix().astype(np.float32)
+        with tracing.span("spaces.pack"):
+            mat = store.dense_matrix().astype(np.float32)
         n, dim = mat.shape
         n_pad = round_up(max(n, 1), row_multiple)
         xt = _pad_cols(self._transform_x(mat).astype(np.float32))

@@ -46,6 +46,7 @@ from ..core.params import ParamManager, Params
 from ..core.registry import register_space
 from ..ops import distance as D
 from ..ops import sparse as S
+from ..utils import tracing
 from .base import Space
 from .dense import PAD_TERM
 
@@ -180,7 +181,8 @@ class SparseSpaceBase(Space):
         pts = store.sparse_points()
         n = len(pts)
         n_pad = round_up(max(n, 1), row_multiple)
-        col, val, length = _pack_csr(pts, n_pad)
+        with tracing.span("spaces.pack"):
+            col, val, length = _pack_csr(pts, n_pad)
         if self.binary:
             val = (np.abs(val) > 0).astype(np.float32)
         pad = np.zeros(n_pad, np.float32)

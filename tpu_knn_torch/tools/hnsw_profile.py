@@ -15,10 +15,11 @@ the card's name and power limit:
   * the device ms of one beam iteration's parts at each efSearch, as
     stand-alone ops at the search's shapes: the row gather, the batched
     product, the three sorts (l2 only: the product is its scorer);
-  * with ``--profile-waves``, a second build whose wave step times its
-    phases (a sync at every phase edge, so its total exceeds the plain
-    build's): ``--space l1 --rows 20000 --efc 100`` gives the ``pairs`` ms
-    of the elementwise kernel's pair form at the build's own shapes;
+  * with ``--profile-waves``, a second build under ``tracing.enable()``
+    whose wave step's ``hnsw.wave.*`` spans give each phase's host and
+    device ms a wave (utils/tracing.py; no sync at the phase edges):
+    ``--space l1 --rows 20000 --efc 100`` gives the ``pairs`` ms of the
+    elementwise kernel's pair form at the build's own shapes;
   * with ``--async``, the wall of one 2048-query batch at efSearch=20 run
     four ways in turns (``knn_query_batch`` on the caller's thread, the same
     under a side stream, the same on a helper thread, and through
@@ -152,9 +153,9 @@ def main() -> int:
 
     from tpu_knn_torch import Index, Params
     from tpu_knn_torch.eval.datasets import sift_like
-    from tpu_knn_torch.methods.hnsw import Hnsw
     from tpu_knn_torch.ops import graph as G
     from tpu_knn_torch.utils import logging as L
+    from tpu_knn_torch.utils import tracing
 
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--rows", type=int, help="corpus rows (default 100,000; 1,000,000 with --nnd)")
@@ -180,18 +181,20 @@ def main() -> int:
                        nndProfile=1)
     lines: list = []
 
-    def make(profile=None):
+    def make(profile=False):
         idx = Index(args.space, Params(dim=128), device="cuda")
         idx.add_dense_batch(corpus)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        Hnsw.wave_profile = profile  # build_index makes the method: set the hook on the class
+        if profile:
+            tracing.reset()
+            tracing.enable()
         L.LOGGER.set_custom(lambda level, msg: (lines.append(msg), print(f"[log] {msg}", flush=True)))
         try:
             idx.build_index(build)
         finally:
-            Hnsw.wave_profile = None
+            tracing.disable()
             L.LOGGER.set_stderr()
         torch.cuda.synchronize()
         return idx, time.perf_counter() - t0, torch.cuda.max_memory_allocated()
@@ -236,11 +239,11 @@ def main() -> int:
     if args.profile_waves:
         del idx
         torch.cuda.empty_cache()
-        prof: dict = {}
-        idx, prof_s, _ = make(prof)
+        idx, prof_s, _ = make(profile=True)
         waves = -(-args.rows // 1024)
-        print(f"[waves] profiled build {prof_s:.2f} s (plain {build_s:.2f} s), {waves} waves; ms per wave: "
-              f"{json.dumps({a: round(b / waves * 1e3, 2) for a, b in prof.items()})} "
+        phases = {name[len("hnsw.wave."):]: t for name, t in tracing.totals().items() if name.startswith("hnsw.wave.")}
+        print(f"[waves] traced build {prof_s:.2f} s (plain {build_s:.2f} s), {waves} waves; host ms, device ms "
+              f"per wave: {json.dumps({a: [round(t['host_ms'] / waves, 2), round((t['device_ms'] or 0) / waves, 2)] for a, t in phases.items()})} "
               f"('pairs' and 'select' are also inside 'reverse'); {smi}", flush=True)
     return 0
 
